@@ -11,9 +11,12 @@ exits non-zero:
    (required);
 2. build: the CUDA kernels of ``coral_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version, bit for bit, with CUDA
-   event timings: K1, K2 and the copy control K7 over the v3 layout at
-   2^21 pairs and 16 intervals (also against numpy), K3 and K4 over the
-   6-column layout at 2^21 pairs with 16 and with 8,200 intervals;
+   event timings: K1, K2 and the copy control K7 over the v3 layout and
+   K5, K6 over the v2 layout at 2^21 pairs and 16 intervals (also against
+   numpy; K5 and K6 against K1 and K2 on the same pairs), K3 and K4 over
+   the 6-column layout at 2^21 pairs with 16 and with 8,200 intervals, K8
+   at 2^21 reads over 256 and over 65,536 bins (also against the
+   prefix-sum histogram), K9 at 2,048, 1,001 and 4,096 positions;
 4. the main paths at WGS scale, on the junction-heavy 10-chromosome
    sample (5,179,920 records, 1.5 M pairs):
    a. reconstruct with the ``cuda`` engine (K1) and the fused batch
@@ -24,6 +27,16 @@ exits non-zero:
       through K3 and the ``cuda6`` batch scorer through K4; hit mask and
       BpTable against the ``numpy`` engine, against K1 on the real
       intervals alone, and again with the decoys placed first;
+   c. the v2 route: the sample's pairs through the native ``pack_pairs2``,
+      the ``cuda2`` batch scorer (K6) against the ``cuda`` and ``torch``
+      engines and K5's hit mask against K1's of 4a;
+   d. coverage: the sample's read spans, chromosome by chromosome, through
+      ``bin_coverage(engine="cuda")`` (K8) against
+      ``CoverageIndex.bin_histogram`` and, on one chromosome, numpy;
+   e. clustering: ``cluster_breakpoints(engine="cuda")`` (K9) against
+      ``engine="host"`` on the breakpoint rows of the mixed sample and on
+      a seeded list with groups of 1,000 to 4,096 members and one past
+      the cap: the same clusters, member for member, in order;
 5. the full pipeline with cycles on a mixed sample through
    ``python -m coral_tpu_torch reconstruct``, ``cuda`` vs ``numpy``:
    graph and cycles files byte-identical.
@@ -39,7 +52,8 @@ written once) over 3.35 TB/s and its integer operations over 16.75 T/s
 (H100 SXM: 64 int32 lanes on each of 132 SMs, a quarter of the 67 TFLOP/s
 float32 rate, which counts 128 lanes and two operations per FMA).  The
 operations of K3 and K4 are counted from this run's data: ten per interval
-a pair examines before its first side is found, thirty for the rest.
+a pair examines before its first side is found, thirty for the rest; those
+of K8 likewise: twelve a read and ten per bin that it touches.
 """
 from __future__ import annotations
 
@@ -69,6 +83,14 @@ INT_OPS_PER_S = 16.75e12
 OPS_PER_PAIR_V3 = 15      # the decision chain (csrc/pair3.cu)
 OPS_PER_PAIR_6COL = 30    # meta decode, gates, reference jump, decision
 OPS_PER_INTERVAL = 10     # two sides x (three compares + two ands)
+OPS_PER_PAIR_V2 = 30      # meta2 decode, MAPQ gate, reference jump, decision
+OPS_PER_READ = 12         # clip to the binned range, first bin (csrc/bins.cu)
+OPS_PER_TOUCHED_BIN = 10  # edge, min, difference, atomic, step
+OPS_PER_CELL = 9          # two x (min, max, subtract, compare) + and
+N_READS = 1 << 21
+READ_SPAN = 200_000_000
+MATCH_CUTOFF = 2000
+COVERAGE_BIN = 100_000    # phase 4d: 1,594 bins a chromosome
 
 KERNELS = {
     "pair3": ("coral_tpu_torch/csrc/pair3.cu",
@@ -81,6 +103,14 @@ KERNELS = {
                       "coral_tpu/ops/pallas_kernels.py:659"),
     "stream_control": ("coral_tpu_torch/csrc/pair3.cu",
                        "coral_tpu/ops/pallas_kernels.py:420"),
+    "pair2": ("coral_tpu_torch/csrc/pair2.cu",
+              "coral_tpu/ops/pallas_kernels.py:238"),
+    "pair2_support": ("coral_tpu_torch/csrc/pair2.cu",
+                      "coral_tpu/ops/pallas_kernels.py:282"),
+    "bin_overlap": ("coral_tpu_torch/csrc/bins.cu",
+                    "coral_tpu/ops/pallas_kernels.py:541"),
+    "match_matrix": ("coral_tpu_torch/csrc/match.cu",
+                     "coral_tpu/ops/pallas_kernels.py:609"),
 }
 
 
@@ -134,6 +164,27 @@ def bound_ms(n_bytes: int, n_ops: int):
 
 def bound_v3(n: int, out_bytes: int):
     return bound_ms(12 * n + out_bytes, OPS_PER_PAIR_V3 * n)
+
+
+def bound_v2(n: int, out_bytes: int):
+    return bound_ms(16 * n + out_bytes, OPS_PER_PAIR_V2 * n)
+
+
+def bound_bins(starts, ends, origin: int, bin_size: int, n_bins: int):
+    """Bound of K8 on these reads: 8 B a read and the sums written once;
+    the bins each read touches are counted from the reads."""
+    lo = np.maximum(starts.astype(np.int64), origin)
+    hi = np.minimum(ends.astype(np.int64), origin + bin_size * n_bins)
+    live = hi > lo
+    touched = int(((hi[live] - 1 - origin) // bin_size
+                   - (lo[live] - origin) // bin_size + 1).sum())
+    return bound_ms(8 * len(starts) + 8 * n_bins,
+                    OPS_PER_READ * len(starts)
+                    + OPS_PER_TOUCHED_BIN * touched)
+
+
+def bound_match(n: int):
+    return bound_ms(8 * n + n * n, OPS_PER_CELL * n * n)
 
 
 def bound_6col(io: np.ndarray, n_int: int, out_bytes: int):
@@ -317,6 +368,96 @@ def dense_case6(n: int, n_int: int, seed: int):
             [c.astype(np.int32) for c in cols])
 
 
+def dense_case2(n: int, n_int: int, seed: int):
+    """v2 columns (qgap, r2_i, r1_j, meta) of which about half hit: both
+    strands on both sides, MAPQ on both sides of the gate (and 0 and 255),
+    gate indices from -1 to n_int - 1, the threshold edges (same strand,
+    |qgap| a multiple of 5 with the reference jump |qgap|/5 and +-1 away),
+    the query-gap edges qgap = -cutoff and -cutoff-1, reference ends and
+    read gaps at the ends of int32, where the differences wrap, and zero
+    pad rows."""
+    rng = np.random.default_rng(seed)
+    i32 = np.iinfo(np.int32)
+    qgap = rng.integers(-300, 60_000, n).astype(np.int64)
+    r2_i = rng.integers(0, 200_000_000, n).astype(np.int64)
+    si = rng.choice([-1, 1], n)
+    sj = rng.choice([-1, 1], n)
+    jump = qgap + rng.integers(-30_000, 30_000, n)
+    iog = rng.integers(-n_int // 3, n_int, n)
+    mapqs, weights = [0, 5, 19, 20, 21, 60, 255], \
+        [.02, .03, .05, .1, .1, .65, .05]
+    mi = rng.choice(mapqs, n, p=weights)
+    mj = rng.choice(mapqs, n, p=weights)
+    k = n // 8
+    edge = rng.integers(0, n, k)
+    q = 5 * rng.integers(101, 12_000, k) * rng.choice([-1, 1], k)
+    qgap[edge] = q
+    jump[edge] = q - np.sign(q) * (np.abs(q) // 5 + rng.integers(-1, 2, k)) \
+        * rng.choice([-1, 1], k)
+    si[edge] = sj[edge]
+    iog[edge] = rng.integers(0, n_int, k)
+    mi[edge] = mj[edge] = 60
+    gapq = rng.integers(0, n, k // 4)
+    qgap[gapq] = -CUTOFF - rng.integers(0, 2, len(gapq))
+    # the jump is r1_j - r2_i on a '+' side j, r2_i - r1_j on a '-' one
+    r1_j = np.where(sj > 0, r2_i + jump, r2_i - jump)
+    wrap = rng.integers(0, n, max(k // 8, 4))
+    ends = np.array([i32.min, i32.min + 1, -1, 0, 1, i32.max - 1, i32.max])
+    for col in (qgap, r2_i, r1_j):
+        col[wrap] = rng.choice(ends, len(wrap))
+    meta = ((iog + 1) << 18) | (mi << 10) | ((si > 0) << 9) | (mj << 1) \
+        | (sj > 0)
+    cols = [qgap, r2_i, r1_j, meta]
+    pad = rng.integers(0, n, max(k // 8, 1))
+    for c in cols:
+        c[pad] = 0
+    return [c.astype(np.int32) for c in cols]
+
+
+def v2_to_v3(packed2, min_mapq: int):
+    """The same pairs in the v3 layout: what the v3 packer resolves at
+    pack time (the MAPQ gate folded into the interval gate, the reference
+    jump in wrapping int32), derived from the v2 columns."""
+    qgap, r2_i, r1_j, meta = packed2
+    iog = ((meta >> 18) & 0x1FFF) - 1
+    ok = (((meta >> 10) & 0xFF) >= min_mapq) & (((meta >> 1) & 0xFF)
+                                               >= min_mapq)
+    plus_i, plus_j = (meta >> 9) & 1, meta & 1
+    with np.errstate(over="ignore"):
+        grr = np.where(plus_j > 0, r1_j - r2_i, r2_i - r1_j)
+    meta3 = ((np.where(ok, iog, -1) + 1) << 1) | (plus_i != plus_j)
+    return [qgap, grr.astype(np.int32), meta3.astype(np.int32)]
+
+
+def synth_reads(n_reads: int, seed: int = 1):
+    """The coverage benchmark's reads (``tools/bench_kernels.py``,
+    ``bench_coverage_bins``): int32 spans of 1 to 60 kb over 200 Mb."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, READ_SPAN, n_reads).astype(np.int32)
+    ends = (starts + rng.integers(1_000, 60_000, n_reads)).astype(np.int32)
+    return starts, ends
+
+
+def synth_breakpoints(seed: int, group_sizes):
+    """A breakpoint list with one clustering group (chromosome pair and
+    orientations) of each size in ``group_sizes``, in shuffled order.  In a
+    group of m members, junctions lie around 2 + sqrt(m) // 12 sites on
+    either side, 5 kb apart, each scattered over 3 kb: with a 2 kb cutoff a
+    site pair holds tens of members in a few clusters, and the first-fit
+    scan has chains to follow and ties to break."""
+    rng = np.random.default_rng(seed)
+    bps = []
+    for g, m in enumerate(group_sizes):
+        sites = 2 + int(m ** 0.5) // 12
+        c1, c2 = f"chr{g % 22 + 1}", f"chr{(g // 22) % 22 + 1}"
+        o1, o2 = "+-"[(g // 484) % 2], "+-"[(g // 968) % 2]
+        p1 = rng.integers(0, sites, m) * 5000 + rng.integers(0, 3000, m)
+        p2 = rng.integers(0, sites, m) * 5000 + rng.integers(0, 3000, m)
+        bps += [[c1, int(a), o1, c2, int(b), o2, ("rd", g, k), 0, 0, 60, 60]
+                for k, (a, b) in enumerate(zip(p1, p2))]
+    return [bps[k] for k in rng.permutation(len(bps))]
+
+
 WGS_CHROMS = [f"chr{i}" for i in range(1, 10)] + ["chrX"]
 WGS_CHR_LEN = 159_345_973
 
@@ -456,15 +597,30 @@ def phase_build() -> None:
 # -- phase 3 --------------------------------------------------------------
 
 def _bench_inputs():
-    """The benchmark batch packed both ways: (v3 columns, (interval table,
-    6 columns))."""
-    from coral_tpu_torch.native.bamcore import pack_pairs
+    """The benchmark batch packed three ways: (v3 columns, (interval table,
+    6 columns), v2 columns)."""
+    from coral_tpu_torch.native.bamcore import pack_pairs, pack_pairs2
     from coral_tpu_torch.ops.scoring import pack_pairs3_host
 
     _, _, cols, ic, is_, ie = synth_scoring_batch(N_PAIRS, N_INT, seed=0)
     table = synth_alignment_table(cols)
     return (pack_pairs3_host(*table, ic, is_, ie, min_mapq=MIN_MAPQ),
-            ((ic, is_, ie), pack_pairs(*table)))
+            ((ic, is_, ie), pack_pairs(*table)),
+            pack_pairs2(*table, ic, is_, ie))
+
+
+def _row(case, err, kern, plain, bound, plain_reps=30):
+    """One kernel's report on one case: its error against the plain version
+    and the times of both, measured now."""
+    return dict(case=case, max_abs_err=err, ms=cuda_ms(kern),
+                plain_ms=cuda_ms(plain, reps=plain_reps, warmup=1),
+                bound_ms=bound[0], bound_by=bound[1])
+
+
+def _log_rows(tag, what, rep):
+    log(f"[{tag}] {what}; ms " + " | ".join(
+        f"{k} {r['ms']:.4f} plain {r['plain_ms']:.4f} bound "
+        f"{r['bound_ms']:.4f} ({r['bound_by']})" for k, r in rep.items()))
 
 
 def _check_v3(kernels, case, packed, report):
@@ -513,19 +669,125 @@ def _check_v3(kernels, case, packed, report):
                            bound_ms(12 * n + 4 * n, 2 * n)),
     }
     for name, (kern, plain, bound) in fns.items():
-        report[name] = dict(case=f"{case}, {n} pairs, {N_INT} intervals",
-                            max_abs_err=errs[name], ms=cuda_ms(kern),
-                            plain_ms=cuda_ms(plain), bound_ms=bound[0],
-                            bound_by=bound[1])
+        report[name] = _row(f"{case}, {n} pairs, {N_INT} intervals",
+                            errs[name], kern, plain, bound)
     ms = {k: report[k]["ms"] for k in fns}
-    log(f"[3 kernels] v3 {case}: n={n} n_int={N_INT} "
-        f"hits={int(hit_np.sum())} K1==plain==numpy K2==plain==numpy "
-        f"K7==plain==numpy; ms " + " | ".join(
-            f"{k} {report[k]['ms']:.4f} plain {report[k]['plain_ms']:.4f} "
-            f"bound {report[k]['bound_ms']:.4f}" for k in fns))
+    _log_rows("3 kernels", f"v3 {case}: n={n} n_int={N_INT} "
+              f"hits={int(hit_np.sum())} K1==plain==numpy K2==plain==numpy "
+              f"K7==plain==numpy", report)
     log(f"[3 kernels] v3 {case}: K1/K7 "
         f"{ms['pair3'] / ms['stream_control']:.3f} K2/K7 "
         f"{ms['pair3_support'] / ms['stream_control']:.3f}")
+
+
+def check_v2(kernels, case, packed, n_int, report, tag="3 kernels"):
+    """K5 and K6 against their plain versions and numpy on one v2 case, and
+    against K1 and K2 on the same pairs in the v3 layout; fills ``report``
+    and returns K5's hit mask (numpy)."""
+    import torch
+
+    from coral_tpu_torch.ops.scoring import pair_predicate_packed2_np
+
+    cols = [torch.from_numpy(c).cuda() for c in packed]
+    cols3 = [torch.from_numpy(c).cuda() for c in v2_to_v3(packed, MIN_MAPQ)]
+    args = (*cols, CUTOFF, MIN_MAPQ, GAP)
+    sargs = (*cols, n_int, CUTOFF, MIN_MAPQ, GAP)
+    n = len(packed[0])
+
+    hit_k, iog_k = kernels.pair2_hitmask(*args)
+    hit_p, iog_p = kernels.pair2_hitmask_torch(*args)
+    sup_k = kernels.pair2_support(*sargs)
+    sup_p = kernels.pair2_support_torch(*sargs)
+    hit_1 = kernels.pair3_hitmask(*cols3, CUTOFF, GAP)
+    sup_2 = kernels.pair3_support(*cols3, n_int, CUTOFF, GAP)
+    torch.cuda.synchronize()
+    errs = {"pair2": max(int((hit_k.int() - hit_p.int()).abs().max()),
+                         int((iog_k.long() - iog_p.long()).abs().max())),
+            "pair2_support": int((sup_k.long() - sup_p.long()).abs().max())}
+    require(torch.equal(hit_k, hit_p), f"K5 hit != plain ({case})")
+    require(torch.equal(iog_k, iog_p), f"K5 iog != plain ({case})")
+    require(torch.equal(sup_k, sup_p), f"K6 != plain ({case})")
+    require(torch.equal(hit_k, hit_1), f"K5 hit != K1 ({case})")
+    require(torch.equal(sup_k, sup_2), f"K6 != K2 ({case})")
+    # numpy's threshold is float64: it may part from the kernels' float32
+    # one on the rows at the ends of int32, nowhere else
+    hit_np, iog_np = pair_predicate_packed2_np(*packed, CUTOFF, MIN_MAPQ, GAP)
+    rows = np.abs(packed[0].astype(np.int64)) < 1 << 24
+    hit = hit_k.cpu().numpy()
+    require(np.array_equal(hit[rows], hit_np[rows]), f"K5 != numpy ({case})")
+    require(np.array_equal(iog_k.cpu().numpy(), iog_np),
+            f"K5 iog != numpy ({case})")
+    what = f"{case}, {n} pairs, {n_int} intervals"
+    rep = {
+        "pair2": _row(what, errs["pair2"],
+                      lambda: kernels.pair2_hitmask(*args),
+                      lambda: kernels.pair2_hitmask_torch(*args),
+                      bound_v2(n, 5 * n)),
+        "pair2_support": _row(what, errs["pair2_support"],
+                              lambda: kernels.pair2_support(*sargs),
+                              lambda: kernels.pair2_support_torch(*sargs),
+                              bound_v2(n, 4 * n_int))}
+    for name, r in rep.items():
+        report[name].append(r)
+    _log_rows(tag, f"v2 {what}: hits={int(hit.sum())} K5==plain==numpy==K1 "
+              f"K6==plain==K2", rep)
+    return hit
+
+
+def check_bins(kernels, case, starts, ends, origin, bin_size, n_bins, report,
+               tag="3 kernels"):
+    """K8 against its plain version and the prefix-sum histogram on one
+    set of reads; fills ``report`` and returns the histogram (numpy)."""
+    import torch
+
+    from coral_tpu_torch.ops.coverage import CoverageIndex
+
+    s = torch.from_numpy(starts).cuda()
+    e = torch.from_numpy(ends).cuda()
+    args = (s, e, origin, bin_size, n_bins)
+    got = kernels.bin_overlap(*args)
+    want = kernels.bin_overlap_torch(*args)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    require(torch.equal(got, want), f"K8 != plain ({case})")
+    hist = got.cpu().numpy()
+    index = CoverageIndex(starts, ends, device="cuda")
+    require(np.array_equal(hist, index.bin_histogram(origin, bin_size,
+                                                     n_bins)),
+            f"K8 != CoverageIndex.bin_histogram ({case})")
+    what = f"{case}, {len(starts)} reads, {n_bins} bins of {bin_size}"
+    rep = {"bin_overlap": _row(
+        what, err, lambda: kernels.bin_overlap(*args),
+        lambda: kernels.bin_overlap_torch(*args),
+        bound_bins(starts, ends, origin, bin_size, n_bins), plain_reps=5)}
+    report["bin_overlap"].append(rep["bin_overlap"])
+    _log_rows(tag, f"bins {what}: bases={int(hist.sum())} "
+              f"K8==plain==prefix sums", rep)
+    return hist
+
+
+def check_match(kernels, case, p1, p2, cutoff, report, tag="3 kernels"):
+    """K9 against its plain version on one group's positions."""
+    import torch
+
+    a, b = torch.from_numpy(p1).cuda(), torch.from_numpy(p2).cuda()
+    got = kernels.match_matrix(a, b, cutoff)
+    want = kernels.match_matrix_torch(a, b, cutoff)
+    torch.cuda.synchronize()
+    err = int((got.int() - want.int()).abs().max())
+    require(torch.equal(got, want), f"K9 != plain ({case})")
+    n = len(p1)
+    what = f"{case}, {n} positions, cutoff {cutoff}"
+    rep = {"match_matrix": _row(
+        what, err, lambda: kernels.match_matrix(a, b, cutoff),
+        lambda: kernels.match_matrix_torch(a, b, cutoff), bound_match(n))}
+    report["match_matrix"].append(rep["match_matrix"])
+    t0 = time.perf_counter()
+    host = got.cpu()
+    t_copy = time.perf_counter() - t0
+    _log_rows(tag, f"match {what}: cells set={int(host.sum())} K9==plain; "
+              f"copy of the {n * n} B matrix to the host "
+              f"{t_copy * 1e3:.3f} ms", rep)
 
 
 def check_6col(kernels, case, ints, packed, report, plain_reps=30):
@@ -563,17 +825,11 @@ def check_6col(kernels, case, ints, packed, report, plain_reps=30):
                           bound_6col(io, n_int, 4 * n_int)),
     }
     for name, (kern, plain, bound) in fns.items():
-        report[name] = dict(case=f"{case}, {n} pairs, {n_int} intervals",
-                            max_abs_err=errs[name], ms=cuda_ms(kern),
-                            plain_ms=cuda_ms(plain, reps=plain_reps,
-                                             warmup=1),
-                            bound_ms=bound[0], bound_by=bound[1])
-    log(f"[3 kernels] 6-column {case}: n={n} n_int={n_int} "
-        f"hits={int(hit_k.sum())} found_i={int((io >= 0).sum())} "
-        f"K3==plain K4==plain; ms " + " | ".join(
-            f"{k} {report[k]['ms']:.4f} plain {report[k]['plain_ms']:.4f} "
-            f"bound {report[k]['bound_ms']:.4f} ({report[k]['bound_by']})"
-            for k in fns))
+        report[name] = _row(f"{case}, {n} pairs, {n_int} intervals",
+                            errs[name], kern, plain, bound, plain_reps)
+    _log_rows("3 kernels", f"6-column {case}: n={n} n_int={n_int} "
+              f"hits={int(hit_k.sum())} found_i={int((io >= 0).sum())} "
+              f"K3==plain K4==plain", report)
     return hit_k.cpu().numpy()
 
 
@@ -583,8 +839,11 @@ def phase_kernels() -> dict:
     from coral_tpu_torch.ops import kernels
     from coral_tpu_torch.ops.scoring import pair_predicate_packed_np
 
-    bench3, (bench_ints, bench6) = _bench_inputs()
+    bench3, (bench_ints, bench6), bench2 = _bench_inputs()
     reports = {k: [] for k in KERNELS}
+    require(all(np.array_equal(a, b) for a, b in
+                zip(v2_to_v3(bench2, MIN_MAPQ), bench3)),
+            "bench batch: v3 columns derived from v2 != packed v3")
 
     def keep(rep):
         for name, r in rep.items():
@@ -612,6 +871,19 @@ def phase_kernels() -> dict:
             rows = (packed[5] >> 23) != 31
             require(np.array_equal(hit[rows], want[rows]),
                     f"K3 != numpy ({case})")
+    for case, packed in (("bench", bench2),
+                         ("dense", dense_case2(N_PAIRS, N_INT, seed=17))):
+        check_v2(kernels, case, packed, N_INT, reports)
+    starts, ends = synth_reads(N_READS)
+    for n_bins in (256, 1 << 16):
+        check_bins(kernels, "bench", starts, ends, 0, READ_SPAN // n_bins,
+                   n_bins, reports)
+    rng = np.random.default_rng(2)
+    for n in (2048, 1001, 4096):
+        check_match(kernels, "bench",
+                    rng.integers(0, 1_000_000, n).astype(np.int32),
+                    rng.integers(0, 1_000_000, n).astype(np.int32),
+                    MATCH_CUTOFF, reports)
     return reports
 
 
@@ -797,8 +1069,29 @@ def phase_main_path(work: str):
         f"{ms['K1'] / ms['K7']:.3f} K2/K7 {ms['K2'] / ms['K7']:.3f}")
     log(f"[4a wgs] launches in the main path's run: {launches}")
     scoring = dict(table=table, pi=pi, starts=starts, ends=ends, span=span,
-                   hit_v3=hit_k.cpu().numpy(), support_v3=support)
+                   hit_v3=hit_k.cpu().numpy(), support_v3=support, cov_v3=cov)
     return rec_c, launches, errs, scoring
+
+
+def _unpacked_columns(table, pi, span):
+    """The 14 unpacked columns (``COL_ORDER``) of the pairs (pi, pi + 1) on
+    the linear coordinate, NM gate off: what the ``torch`` engine takes."""
+    from coral_tpu_torch.ops.scoring import COL_ORDER
+
+    pj = pi + 1
+    base_i = table.chrom[pi].astype(np.int64) * span
+    base_j = table.chrom[pj].astype(np.int64) * span
+    nm = np.zeros(len(pi), np.float32)
+    cols14 = dict(
+        qi_end=table.q_end[pi], qj_start=table.q_start[pj],
+        chrom_i=table.chrom[pi], r1_i=table.r1[pi] + base_i,
+        r2_i=table.r2[pi] + base_i,
+        strand_i=table.strand[pi].astype(np.int32), mapq_i=table.mapq[pi],
+        nm_i=nm, chrom_j=table.chrom[pj], r1_j=table.r1[pj] + base_j,
+        r2_j=table.r2[pj] + base_j,
+        strand_j=table.strand[pj].astype(np.int32), mapq_j=table.mapq[pj],
+        nm_j=nm)
+    return [cols14[k] for k in COL_ORDER]
 
 
 @contextlib.contextmanager
@@ -835,14 +1128,13 @@ def phase_six_column_path(rec, scoring, report):
     from coral_tpu_torch.native.bamcore import pack_pairs
     from coral_tpu_torch.ops import kernels
     from coral_tpu_torch.ops import pairs as pairs_mod
-    from coral_tpu_torch.ops.scoring import COL_ORDER, \
-        MAX_PACKED2_INTERVALS, make_batch_scorer
+    from coral_tpu_torch.ops.scoring import MAX_PACKED2_INTERVALS, \
+        make_batch_scorer
 
     cfg_b = rec.cfg.bp
     real = [list(iv) for iv in rec.amplicon_intervals]
     decoys = decoy_intervals(N_DECOYS)
     table, pi, span = scoring["table"], scoring["pi"], scoring["span"]
-    pj = pi + 1
     require(len(real) + len(decoys) > MAX_PACKED2_INTERVALS,
             "interval list not past the v3 limit")
 
@@ -899,23 +1191,11 @@ def phase_six_column_path(rec, scoring, report):
     require(np.array_equal(sup6[:len(real)], scoring["support_v3"]),
             "cuda6 support != cuda (K2) on the real intervals")
     require(not sup6[len(real):].any(), "a decoy interval has support")
-    base_i = table.chrom[pi].astype(np.int64) * span
-    base_j = table.chrom[pj].astype(np.int64) * span
-    nm = np.zeros(len(pi), np.float32)
-    cols14 = dict(
-        qi_end=table.q_end[pi], qj_start=table.q_start[pj],
-        chrom_i=table.chrom[pi], r1_i=table.r1[pi] + base_i,
-        r2_i=table.r2[pi] + base_i,
-        strand_i=table.strand[pi].astype(np.int32), mapq_i=table.mapq[pi],
-        nm_i=nm, chrom_j=table.chrom[pj], r1_j=table.r1[pj] + base_j,
-        r2_j=table.r2[pj] + base_j,
-        strand_j=table.strand[pj].astype(np.int32), mapq_j=table.mapq[pj],
-        nm_j=nm)
     t0 = time.perf_counter()
     build_l, score_l = make_batch_scorer(ic, lin_s, lin_e, "torch",
                                          device="cuda")
     sup_t, cov_t = score_l(build_l(scoring["starts"], scoring["ends"]),
-                           *(cols14[k] for k in COL_ORDER))
+                           *_unpacked_columns(table, pi, span))
     sup_t, cov_t = sup_t.cpu().numpy(), cov_t.cpu().numpy()
     t_torch = time.perf_counter() - t0
     require(np.array_equal(sup6, sup_t), "cuda6 support != torch engine")
@@ -955,6 +1235,195 @@ def phase_six_column_path(rec, scoring, report):
         f"the real intervals == torch on the long list ({t_torch:.3f} s); "
         f"support {sup6[:len(real)].tolist()}, decoys 0, coverage exact")
     log(f"[4b wgs6] launches in this path's run: {launches}")
+    return launches
+
+
+def phase_v2_path(rec, scoring, report):
+    """4c: the v2 route.  The WGS sample's pairs through the native
+    ``pack_pairs2``, then ``make_batch_scorer(engine="cuda2")`` (K6) and
+    ``pair_predicates_packed2`` (K5).  Returns the launch counts of that
+    run."""
+    from coral_tpu_torch.native.bamcore import pack_pairs2
+    from coral_tpu_torch.ops import kernels
+    from coral_tpu_torch.ops.scoring import make_batch_scorer
+
+    table, pi, span = scoring["table"], scoring["pi"], scoring["span"]
+    ic, is_, ie = _interval_arrays(rec.amplicon_intervals)
+    _, lin_s, lin_e = _interval_arrays(rec.amplicon_intervals, span)
+    reads = scoring["starts"], scoring["ends"]
+
+    # this path's run: counters from zero
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    packed2 = pack_pairs2(pi, table.q_start, table.q_end, table.r1, table.r2,
+                          table.chrom, table.strand, table.mapq, ic, is_, ie)
+    t_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build2, score2 = make_batch_scorer(ic, lin_s, lin_e, "cuda2",
+                                       device="cuda")
+    sup2, cov2 = score2(build2(*reads), *packed2)
+    sup2, cov2 = sup2.cpu().numpy(), cov2.cpu().numpy()
+    t_score = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hit2, iog2 = kernels.pair_predicates_packed2(
+        packed2, len(pi), CUTOFF, MIN_MAPQ, GAP, device="cuda")
+    t_mask = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require(launches["pair2"] >= 1, f"K5 never launched: {launches}")
+    require(launches["pair2_support"] >= 1, f"K6 never launched: {launches}")
+
+    require(np.array_equal(hit2, scoring["hit_v3"]),
+            "v2 route: K5 hit mask != K1's of the main path")
+    require(np.array_equal(sup2, scoring["support_v3"]),
+            "cuda2 support != cuda (K2)")
+    require(np.array_equal(cov2, scoring["cov_v3"]),
+            "cuda2 coverage != cuda")
+    build_t, score_t = make_batch_scorer(ic, lin_s, lin_e, "torch",
+                                         device="cuda")
+    sup_t, cov_t = score_t(build_t(*reads),
+                           *_unpacked_columns(table, pi, span))
+    require(np.array_equal(sup2, sup_t.cpu().numpy()),
+            "cuda2 support != torch engine")
+    require(np.array_equal(cov2, cov_t.cpu().numpy()),
+            "cuda2 coverage != torch engine")
+    require(np.array_equal(np.bincount(iog2[hit2], minlength=len(ic)), sup2),
+            "K5's hits binned by iog != K6's support")
+    # K5, K6 against their plain versions at this path's own shape, with
+    # their times (after the counts were read)
+    hit_k = check_v2(kernels, "WGS sample", packed2, len(ic), report,
+                     tag="4c wgs2")
+    require(np.array_equal(hit_k, hit2), "K5 at the path's shape != path")
+    log(f"[4c wgs2] {len(pi)} pairs, {len(ic)} intervals: native pack_pairs2 "
+        f"{t_pack:.3f} s; batch scorer cuda2 (K6 + int64 coverage) "
+        f"{t_score:.3f} s == cuda (K2) == torch, support {sup2.tolist()}, "
+        f"coverage exact; hit mask (copies + K5) {t_mask:.3f} s == K1's of "
+        f"4a ({int(hit2.sum())} hits)")
+    log(f"[4c wgs2] launches in this path's run: {launches}")
+    return launches
+
+
+def phase_coverage_path(rec, report):
+    """4d: genome-bin coverage.  The WGS sample's read spans, chromosome by
+    chromosome, through ``bin_coverage(engine="cuda")`` (K8).  Returns the
+    launch counts of that run."""
+    from coral_tpu_torch.ops import kernels
+    from coral_tpu_torch.ops.coverage import CoverageIndex, bin_coverage
+
+    bam = rec.bam
+    n_bins = -(-WGS_CHR_LEN // COVERAGE_BIN)
+    spans = []
+    for rid in range(len(bam.references)):
+        rows = bam.ref_id == rid
+        spans.append((bam.pos[rows].astype(np.int32),
+                      bam.end[rows].astype(np.int32)))
+
+    # this path's run: counters from zero
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hists = [bin_coverage(s, e, 0, COVERAGE_BIN, n_bins, engine="cuda",
+                          device="cuda") for s, e in spans]
+    t_bins = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require(launches["bin_overlap"] == len(spans),
+            f"K8 launches != chromosomes: {launches}")
+
+    t0 = time.perf_counter()
+    for (s, e), hist in zip(spans, hists):
+        index = CoverageIndex(s, e, device="cuda")
+        require(np.array_equal(hist, index.bin_histogram(0, COVERAGE_BIN,
+                                                         n_bins)),
+                "bin_coverage != CoverageIndex.bin_histogram")
+    t_index = time.perf_counter() - t0
+    s, e = (a.astype(np.int64) for a in spans[0])
+    edges = COVERAGE_BIN * np.arange(n_bins + 1, dtype=np.int64)
+    require(np.array_equal(hists[0],
+                           _coverage_numpy(s, e, edges[:-1], edges[1:])),
+            "bin_coverage != numpy on the first chromosome")
+    require(int(hists[0].sum()) == int(np.minimum(e, edges[-1]).sum()
+                                       - s.sum()),
+            "bins do not add up to the aligned bases")
+    n_reads = sum(len(s) for s, _ in spans)
+    require(n_reads == int((bam.ref_id >= 0).sum()), "reads left out")
+    # K8 against its plain version at this path's own shape, with its times
+    hist = check_bins(kernels, "WGS sample, one chromosome", *spans[0], 0,
+                      COVERAGE_BIN, n_bins, report, tag="4d bins")
+    require(np.array_equal(hist, hists[0]), "K8 at the path's shape != path")
+    log(f"[4d bins] {n_reads} reads on {len(spans)} chromosomes, {n_bins} "
+        f"bins of {COVERAGE_BIN} each: bin_coverage(cuda) {t_bins:.3f} s "
+        f"(copies included) == CoverageIndex.bin_histogram ({t_index:.3f} s, "
+        f"tables built per chromosome) == numpy on {bam.references[0][0]}; "
+        f"{int(sum(h.sum() for h in hists))} aligned bases")
+    log(f"[4d bins] launches in this path's run: {launches}")
+    return launches
+
+
+def phase_cluster_path(work: str, report):
+    """4e: clustering.  ``cluster_breakpoints(engine="cuda")`` (K9) against
+    ``engine="host"`` on the mixed sample's breakpoint rows and on a seeded
+    list with large groups.  Returns the launch counts of that run."""
+    from coral_tpu_torch.config import DEFAULT_CONFIG
+    from coral_tpu_torch.io.bam import BamFile
+    from coral_tpu_torch.ops import breakpoints as bp_mod
+    from coral_tpu_torch.ops import kernels
+    from coral_tpu_torch.ops.pairs import find_breakpoints_device
+    from coral_tpu_torch.reconstruct import Reconstruction
+    from coral_tpu_torch.sim import simulate_mixed_sample
+
+    bam, cns, seeds = simulate_mixed_sample(work, seed=3)
+    rec = Reconstruction(BamFile(bam), seeds, DEFAULT_CONFIG, device="cuda")
+    rec.read_cns(cns)
+    rec.collect()
+    rec.hash_to_segments()
+    rec.find_amplicon_intervals()
+    cfg_b = rec.cfg.bp
+    rows = find_breakpoints_device(
+        rec.chimeras, rec.amplicon_intervals, cfg_b.min_bp_match_cutoff,
+        cfg_b.min_mapq, 100, cfg_b.gap_mapq, None, engine="cuda",
+        device="cuda")
+    rec.bam.close()
+    sizes = (1000, 1500, 2500, 4096, 5000, 300, 40)
+    synth = synth_breakpoints(seed=11, group_sizes=sizes)
+    lists = (("mixed sample", rows, rec.min_cluster_cutoff,
+              cfg_b.max_bp_distance_cutoff),
+             ("seeded list", synth, 3, MATCH_CUTOFF))
+
+    def ids(clusters):
+        return [[id(m) for m in c] for c in clusters]
+
+    # this path's run: counters from zero
+    kernels.reset_launches()
+    out = []
+    for name, bps, min_size, cutoff in lists:
+        t0 = time.perf_counter()
+        dev = bp_mod.cluster_breakpoints(bps, min_size, cutoff,
+                                         engine="cuda", device="cuda")
+        out.append((dev, time.perf_counter() - t0))
+    launches = dict(kernels.LAUNCHES)
+    require(launches["match_matrix"] >= 6,
+            f"K9 launches (one a group under the cap): {launches}")
+
+    for (name, bps, min_size, cutoff), (dev, t_dev) in zip(lists, out):
+        t0 = time.perf_counter()
+        host = bp_mod.cluster_breakpoints(bps, min_size, cutoff)
+        t_host = time.perf_counter() - t0
+        require(ids(dev) == ids(host), f"{name}: cuda clusters != host")
+        require(sum(map(len, dev)) == len(bps), f"{name}: members lost")
+        groups = {}
+        for bp in bps:
+            key = (bp[0], bp[3], bp[2], bp[5])
+            groups[key] = groups.get(key, 0) + 1
+        log(f"[4e cluster] {name}: {len(bps)} rows in {len(groups)} groups "
+            f"(largest {max(groups.values())}), {len(dev)} clusters, "
+            f"cuda == host member for member; s cuda {t_dev:.3f} host "
+            f"{t_host:.3f}")
+    require(max(sizes) > bp_mod._DEVICE_GROUP_CAP, "no group past the cap")
+    # K9 against its plain version at this path's largest shape
+    big = [bp for bp in synth if bp[6][1] == sizes.index(4096)]
+    check_match(kernels, "seeded list, largest group under the cap",
+                np.asarray([bp[1] for bp in big], np.int32),
+                np.asarray([bp[4] for bp in big], np.int32), MATCH_CUTOFF,
+                report, tag="4e cluster")
+    log(f"[4e cluster] launches in this path's run: {launches}")
     return launches
 
 
@@ -1013,7 +1482,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         rec, launches, wgs_errs, scoring = phase_main_path(work)
         launches6 = phase_six_column_path(rec, scoring, report)
+        launches2 = phase_v2_path(rec, scoring, report)
+        launches_bins = phase_coverage_path(rec, report)
         rec.bam.close()
+    with tempfile.TemporaryDirectory() as work:
+        launches_match = phase_cluster_path(work, report)
     with tempfile.TemporaryDirectory() as work:
         phase_cycles(work)
     banned = [m for m in sys.modules
@@ -1023,7 +1496,9 @@ def main() -> int:
     # control's are those of the reconstruct run, whose columns it read
     counted = {"pair3": launches, "pair3_support": launches,
                "pair6": launches6, "pair6_support": launches6,
-               "stream_control": launches}
+               "stream_control": launches, "pair2": launches2,
+               "pair2_support": launches2, "bin_overlap": launches_bins,
+               "match_matrix": launches_match}
     kern = []
     for name, (source, replaces) in KERNELS.items():
         rows = report[name]

@@ -162,7 +162,6 @@ pair6_support_kernel(Table tb, Cols c, int64_t n, int32_t cutoff,
     __syncthreads();
   }
   int32_t staged = -1;
-  const int lane = threadIdx.x & 31;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads; base < n;
        base += stride) {
@@ -170,11 +169,7 @@ pair6_support_kernel(Table tb, Cols c, int64_t n, int32_t cutoff,
     const bool h = pair6_decide(tb, c, tile, staged, base, n, cutoff,
                                 min_mapq, gap, &io_i);
     // all 32 lanes are here together: pair6_decide ends on a barrier
-    const int32_t bin = h ? io_i : -1;
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, bin);
-    if (bin >= 0 && lane == __ffs(peers) - 1) {
-      atomicAdd(&bins[bin], __popc(peers));
-    }
+    coral::warp_count(bins, h ? io_i : -1, static_cast<uint32_t>(tb.n));
   }
   if (shared_bins) {
     __syncthreads();

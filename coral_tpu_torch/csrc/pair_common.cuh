@@ -1,6 +1,6 @@
-// Shared by the pair kernels (pair3.cu, pair6.cu): the junction decision
-// chain, evaluated exactly as the TPU kernels evaluate it, and the launch
-// helpers.
+// Shared by the kernels (pair2.cu, pair3.cu, pair6.cu, bins.cu, match.cu):
+// the junction decision chain, evaluated exactly as the TPU kernels
+// evaluate it, the warp-aggregated histogram step, and the launch helpers.
 //
 // The decision (coral_tpu_torch/ops/scoring.py, pair_predicate):
 //   hit = qgap + cutoff >= 0 && gate
@@ -41,6 +41,19 @@ __device__ __forceinline__ bool junction_hit(int32_t qgap, int32_t grr,
   const int32_t ad = wrap_abs(wrap_sub(qgap, grr));
   const float thr = fmaxf(gap, __fmul_rn(__int2float_rn(wrap_abs(qgap)), 0.2f));
   return qc >= 0 && gate && (strand_diff || __int2float_rn(ad) > thr);
+}
+
+// One histogram step of a whole warp: every lane brings a bin (any value
+// outside 0..bins-1 counts nothing), and each distinct bin of the warp
+// gets one atomicAdd of its number of lanes.  All 32 lanes must call it
+// together.
+__device__ __forceinline__ void warp_count(int32_t* hist, int32_t bin,
+                                           uint32_t bins) {
+  const int32_t b = static_cast<uint32_t>(bin) < bins ? bin : -1;
+  const unsigned peers = __match_any_sync(0xFFFFFFFFu, b);
+  if (b >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) {
+    atomicAdd(&hist[b], __popc(peers));
+  }
 }
 
 inline bool aligned(const void* p, uintptr_t to) {

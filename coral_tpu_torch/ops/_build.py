@@ -72,12 +72,20 @@ def load() -> ctypes.CDLL:
     lib.coral_pair3_hitmask.restype = i
     lib.coral_pair3_support.argtypes = [p, p, p, p, ll, i, i, f, i, p]
     lib.coral_pair3_support.restype = i
+    lib.coral_pair2_hitmask.argtypes = [p] * 6 + [ll, i, i, f, i, p]
+    lib.coral_pair2_hitmask.restype = i
+    lib.coral_pair2_support.argtypes = [p] * 5 + [ll, i, i, i, f, i, p]
+    lib.coral_pair2_support.restype = i
     lib.coral_pair6_hitmask.argtypes = [p] * 9 + [p, p, ll, i, i, i, f, i, p]
     lib.coral_pair6_hitmask.restype = i
     lib.coral_pair6_support.argtypes = [p] * 9 + [p, ll, i, i, i, f, i, p]
     lib.coral_pair6_support.restype = i
     lib.coral_stream_control.argtypes = [p, p, p, p, ll, i, p]
     lib.coral_stream_control.restype = i
+    lib.coral_bin_overlap.argtypes = [p, p, p, ll, ll, ll, i, i, p]
+    lib.coral_bin_overlap.restype = i
+    lib.coral_match_matrix.argtypes = [p, p, p, i, i, i, p]
+    lib.coral_match_matrix.restype = i
     lib.coral_cuda_error_string.argtypes = [i]
     lib.coral_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

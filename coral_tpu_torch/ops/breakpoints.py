@@ -345,12 +345,57 @@ def _cluster_group_host(members: List[list],
     return sub
 
 
+# device-path group-size cap: the (n, n) uint8 match matrix must stay
+# modest (4096**2 = 16 MB to copy back); larger groups take the host path
+_DEVICE_GROUP_CAP = 4096
+
+
+def _cluster_group_device(members: List[list], distance_cutoff: int,
+                          engine: str, device) -> List[List[list]]:
+    """Exact first-fit clustering with the pairwise-match test done as one
+    match matrix on ``device``: by the kernel K9 (``engine='cuda'``) or by
+    its plain version (``engine='torch'``).
+
+    Equivalence to the sequential scan: breakpoint ``i`` joins the
+    first-created cluster with any matching member, which equals
+    ``min(cluster_of[j])`` over earlier matches ``j`` — every cluster's
+    members are exactly the breakpoints assigned to it, and it matches
+    ``i`` iff one of them does.
+    """
+    import torch
+
+    from .kernels import match_matrix, match_matrix_torch
+
+    p1 = np.asarray([int(bp[1]) for bp in members], np.int64)
+    p2 = np.asarray([int(bp[4]) for bp in members], np.int64)
+    if (np.abs(p1) >= 2**31 - 1).any() or (np.abs(p2) >= 2**31 - 1).any() \
+            or not 0 <= distance_cutoff < 2**31:
+        return _cluster_group_host(members, distance_cutoff)
+    fn = match_matrix if engine == "cuda" else match_matrix_torch
+    mat = fn(torch.from_numpy(p1.astype(np.int32)).to(device),
+             torch.from_numpy(p2.astype(np.int32)).to(device),
+             int(distance_cutoff)).cpu().numpy()
+    cluster_of = np.empty(len(members), np.int32)
+    sub: List[List[list]] = []
+    for i, bp in enumerate(members):
+        cand = np.nonzero(mat[i, :i])[0]
+        if cand.size:
+            t = int(cluster_of[cand].min())
+            cluster_of[i] = t
+            sub[t].append(bp)
+        else:
+            cluster_of[i] = len(sub)
+            sub.append([bp])
+    return sub
+
+
 def cluster_breakpoints(
     bp_list: List[list],
     min_cluster_size: float,
     distance_cutoff: int,
     engine: str = "host",
-    interpret: bool = False,
+    *,
+    device="cuda",
 ) -> List[List[list]]:
     """Greedy first-fit clustering keyed by (chr1, chr2, o1, o2).
 
@@ -359,15 +404,23 @@ def cluster_breakpoints(
     within ``distance_cutoff`` on both coordinates; groups smaller than
     ``min_cluster_size`` pass through as single clusters.
 
-    ``engine='cuda'`` is the place of the match-matrix kernel K9
-    (``_match_kernel``, ``coral_tpu/ops/pallas_kernels.py``), which is not
-    ported yet: it raises rather than cluster on the host.
+    ``engine='cuda'`` (``engine='pallas'`` in the JAX package) takes the
+    pairwise membership tests of a group from the match-matrix kernel K9 on
+    the CUDA device ``device`` and raises without one; ``engine='torch'``
+    takes them from the kernel's plain version on ``device``, CPU or CUDA.
+    The output is identical; groups above the size cap, or with positions
+    outside int32, take the host scan.  ``engine='host'`` ignores
+    ``device``.
     """
+    if engine not in ("host", "torch", "cuda"):
+        raise ValueError(f"unknown engine {engine!r} (host, torch or cuda)")
     if engine != "host":
-        raise NotImplementedError(
-            f"cluster_breakpoints(engine={engine!r}) needs K9 (_match_kernel, "
-            "the breakpoint match matrix), which is not ported yet; "
-            "engine='host' is the only engine")
+        from ..device import resolve_device
+
+        device = resolve_device(device)
+        if engine == "cuda" and device.type != "cuda":
+            raise ValueError(f"engine='cuda' needs a CUDA device, not "
+                             f"{device}")
     groups: dict = {}
     for bp in bp_list:
         groups.setdefault((bp[0], bp[3], bp[2], bp[5]), []).append(bp)
@@ -376,7 +429,11 @@ def cluster_breakpoints(
         if len(members) < min_cluster_size:
             clusters.append(members)
             continue
-        clusters.extend(_cluster_group_host(members, distance_cutoff))
+        if engine != "host" and len(members) <= _DEVICE_GROUP_CAP:
+            clusters.extend(_cluster_group_device(members, distance_cutoff,
+                                                  engine, device))
+        else:
+            clusters.extend(_cluster_group_host(members, distance_cutoff))
     return clusters
 
 

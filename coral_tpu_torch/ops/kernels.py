@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the port, each beside its plain
-PyTorch version (the counterpart of ``coral_tpu/ops/pallas_kernels.py``
-for K1, K2, K3, K4 and K7).
+PyTorch version (the counterpart of ``coral_tpu/ops/pallas_kernels.py``,
+all nine of its kernels, K1 to K9).
 
 A wrapper takes the plain version only for tensors on the CPU.  For a
 CUDA tensor it launches its kernel (``csrc/*.cu``, built on first use by
@@ -8,21 +8,28 @@ CUDA tensor it launches its kernel (``csrc/*.cu``, built on first use by
 kernel launches, so a run can show that it went through them.
 
 K1, K2 and K7 stream 12 B per pair of the packed v3 layout
-(:data:`.scoring.PACKED3_COL_ORDER`) and are bound by device memory
-bandwidth.  K3 and K4 stream 24 B per pair of the 6-column layout
+(:data:`.scoring.PACKED3_COL_ORDER`), K5 and K6 16 B per pair of the v2
+layout (:data:`.scoring.PACKED2_COL_ORDER`); all five are bound by device
+memory bandwidth.  K3 and K4 stream 24 B per pair of the 6-column layout
 (:data:`.scoring.PACKED_COL_ORDER`) and scan the interval table per pair:
 bound by bandwidth at a handful of intervals and by integer operations at
-thousands.
+thousands.  K8 (aligned bases per genome bin) streams 8 B per read and
+walks the bins a read touches; K9 (the match matrix of a clustering
+group) writes one byte per cell for about nine integer operations.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from .scoring import MAX_PACKED2_INTERVALS, pair_predicate_packed, \
-    pair_predicate_packed3
+from ..device import resolve_device
+from .scoring import MAX_PACKED2_INTERVALS, as_tensor, \
+    pair_predicate_packed, pair_predicate_packed2, pair_predicate_packed3
 
 LAUNCHES = {"pair3": 0, "pair3_support": 0, "pair6": 0, "pair6_support": 0,
-            "stream_control": 0}
+            "stream_control": 0, "pair2": 0, "pair2_support": 0,
+            "bin_overlap": 0, "match_matrix": 0}
 
 
 def reset_launches() -> None:
@@ -199,4 +206,177 @@ def pair6_support(int_chrom, int_start, int_end, qgap, r1_i, r2_i, r1_j,
             int_chrom.data_ptr(), int_start.data_ptr(), int_end.data_ptr(),
             *(c.data_ptr() for c in packed6), out.data_ptr(), n, n_int,
             int(cutoff), int(min_mapq), float(gap_))
+    return out
+
+
+def pair2_hitmask_torch(qgap, r2_i, r1_j, meta, cutoff: int, min_mapq,
+                        gap_: float):
+    """Plain version of K5: (hit bool (n,), iog int32 (n,))."""
+    hit, iog = pair_predicate_packed2(qgap, r2_i, r1_j, meta, cutoff,
+                                      min_mapq, gap_)
+    return hit, iog.to(torch.int32)
+
+
+def pair2_support_torch(qgap, r2_i, r1_j, meta, n_int: int, cutoff: int,
+                        min_mapq, gap_: float):
+    """Plain version of K6: per-interval support counts, int32 (n_int,).
+    Gate indices past ``n_int`` are dropped, as the TPU kernel drops them."""
+    hit, iog = pair_predicate_packed2(qgap, r2_i, r1_j, meta, cutoff,
+                                      min_mapq, gap_)
+    return torch.bincount(iog[hit], minlength=n_int)[:n_int].to(torch.int32)
+
+
+def pair2_hitmask(qgap, r2_i, r1_j, meta, cutoff: int, min_mapq,
+                  gap_: float):
+    """K5 (replaces ``_pair2_kernel``): the predicate over the packed v2
+    layout, with the MAPQ gate and the reference jump taken in the kernel.
+    Returns (hit bool (n,), iog int32 (n,)): ``iog`` is the interval gate
+    as packed, -1 if none, whatever the MAPQs are."""
+    n = _check_cols("qgap, r2_i, r1_j, meta", qgap, r2_i, r1_j, meta)
+    if qgap.device.type == "cpu":
+        return pair2_hitmask_torch(qgap, r2_i, r1_j, meta, cutoff, min_mapq,
+                                   gap_)
+    hit = torch.empty(n, dtype=torch.bool, device=qgap.device)
+    iog = torch.empty(n, dtype=torch.int32, device=qgap.device)
+    if n == 0:
+        return hit, iog
+    _launch("pair2", "coral_pair2_hitmask", qgap,
+            qgap.data_ptr(), r2_i.data_ptr(), r1_j.data_ptr(),
+            meta.data_ptr(), hit.data_ptr(), iog.data_ptr(), n, int(cutoff),
+            int(math.ceil(min_mapq)), float(gap_))
+    return hit, iog
+
+
+def pair2_support(qgap, r2_i, r1_j, meta, n_int: int, cutoff: int, min_mapq,
+                  gap_: float):
+    """K6 (replaces ``_pair_hist2_kernel``): K5 fused with the
+    per-interval support histogram of ``hit & (iog == k)``, int32
+    (n_int,)."""
+    n = _check_cols("qgap, r2_i, r1_j, meta", qgap, r2_i, r1_j, meta)
+    if not 1 <= n_int <= MAX_PACKED2_INTERVALS:
+        raise ValueError(f"n_int={n_int} outside 1..{MAX_PACKED2_INTERVALS}")
+    if qgap.device.type == "cpu":
+        return pair2_support_torch(qgap, r2_i, r1_j, meta, n_int, cutoff,
+                                   min_mapq, gap_)
+    out = torch.zeros(n_int, dtype=torch.int32, device=qgap.device)
+    if n == 0:
+        return out
+    _launch("pair2_support", "coral_pair2_support", qgap,
+            qgap.data_ptr(), r2_i.data_ptr(), r1_j.data_ptr(),
+            meta.data_ptr(), out.data_ptr(), n, int(n_int), int(cutoff),
+            int(math.ceil(min_mapq)), float(gap_))
+    return out
+
+
+def pair_predicates_packed2(packed, n: int, min_bp_match_cutoff: int = 100,
+                            min_mapq: int = 20, gap_: float = 100.0, *,
+                            device):
+    """K5 over numpy columns of the v2 layout, as ``bamcore.pack_pairs2``
+    or ``scoring.pack_pairs2_host`` emit them, zero-padded or not (the
+    counterpart of ``pair_predicates_pallas_packed2``).  Returns numpy
+    (hit, iog) trimmed to the first ``n`` pairs."""
+    dev = resolve_device(device)
+    hit, iog = pair2_hitmask(
+        *(as_tensor(c, dev, torch.int32) for c in packed),
+        min_bp_match_cutoff, min_mapq, gap_)
+    return hit[:n].cpu().numpy(), iog[:n].cpu().numpy()
+
+
+_I62 = 1 << 62
+
+
+def _check_bins(origin: int, bin_size: int, n_bins: int) -> None:
+    if bin_size < 1 or not 1 <= n_bins < 1 << 31:
+        raise ValueError(f"bin_size={bin_size}, n_bins={n_bins}: both must "
+                         "be positive")
+    if abs(origin) >= _I62 or bin_size * n_bins >= _I62:
+        raise ValueError("bin edges exceed int64")
+
+
+def bin_overlap_torch(starts, ends, origin: int, bin_size: int, n_bins: int):
+    """Plain version of K8: int64 (n_bins,).  The kernel's walk, a bin at a
+    time over the reads that still have bases left."""
+    _check_bins(origin, bin_size, n_bins)
+    out = torch.zeros(n_bins, dtype=torch.int64, device=starts.device)
+    last_edge = origin + bin_size * n_bins
+    lo = starts.to(torch.int64).clamp(min=origin)
+    hi = ends.to(torch.int64).clamp(max=last_edge)
+    live = hi > lo
+    lo, hi = lo[live], hi[live]
+    b = torch.div(lo - origin, bin_size, rounding_mode="floor")
+    while lo.numel():
+        to = torch.minimum(hi, origin + (b + 1) * bin_size)
+        out.index_add_(0, b, to - lo)
+        live = to < hi
+        lo, hi, b = to[live], hi[live], b[live] + 1
+    return out
+
+
+def bin_overlap(starts, ends, origin: int, bin_size: int, n_bins: int):
+    """K8 (replaces ``_bin_kernel``): aligned bases per genome bin.  For
+    int32 reads ``[starts, ends)`` and the ``n_bins`` contiguous bins of
+    ``bin_size`` from ``origin``, ``out[b] = sum(max(min(e, hi_b) -
+    max(s, lo_b), 0))``, int64 (n_bins,).  Reads with ``e <= s`` add
+    nothing; reads that reach outside the binned range are clipped.
+
+    Edges and sums are int64.  The TPU kernel casts the edges to int32 and
+    sums in int32, so the two agree wherever neither of those wraps; this
+    one equals ``CoverageIndex.bin_histogram`` (reads with ``e >= s``) at
+    any size."""
+    n = _check_cols("starts, ends", starts, ends)
+    origin, bin_size, n_bins = int(origin), int(bin_size), int(n_bins)
+    _check_bins(origin, bin_size, n_bins)
+    if starts.device.type == "cpu":
+        return bin_overlap_torch(starts, ends, origin, bin_size, n_bins)
+    out = torch.zeros(n_bins, dtype=torch.int64, device=starts.device)
+    if n == 0:
+        return out
+    _launch("bin_overlap", "coral_bin_overlap", starts,
+            starts.data_ptr(), ends.data_ptr(), out.data_ptr(), n, origin,
+            bin_size, n_bins)
+    return out
+
+
+# the (n, n) matrix is n^2 bytes; 2^16 rows are 4 GB
+_MATCH_MAX_N = 1 << 16
+
+
+def _check_match(p1, p2, cutoff: int) -> int:
+    n = _check_cols("p1, p2", p1, p2)
+    if n > _MATCH_MAX_N:
+        raise ValueError(f"{n} positions: at most {_MATCH_MAX_N}")
+    if not 0 <= cutoff < 1 << 31:
+        raise ValueError(f"cutoff={cutoff} outside 0..2^31-1")
+    return n
+
+
+def match_matrix_torch(p1, p2, cutoff: int):
+    """Plain version of K9: uint8 (n, n), differences in int64."""
+    _check_match(p1, p2, cutoff)
+    a, b = p1.to(torch.int64), p2.to(torch.int64)
+    near = ((a[:, None] - a[None, :]).abs() < cutoff) \
+        & ((b[:, None] - b[None, :]).abs() < cutoff)
+    return near.to(torch.uint8)
+
+
+def match_matrix(p1, p2, cutoff: int):
+    """K9 (replaces ``_match_kernel``): the pairwise match matrix of one
+    clustering group, ``M[i, j] = |p1_i - p1_j| < cutoff and |p2_i - p2_j|
+    < cutoff`` for int32 positions, any ``n``.  Returns uint8 (n, n) of 0/1
+    (the TPU kernel returns int32; callers only ask which cells are
+    non-zero).
+
+    The differences are the true ones, as in the host clustering (int64).
+    The TPU kernel subtracts in int32, which wraps once two positions are
+    2^31 or more apart, possible only with negative positions; there this
+    kernel follows the host, not the TPU kernel."""
+    cutoff = int(cutoff)
+    n = _check_match(p1, p2, cutoff)
+    if p1.device.type == "cpu":
+        return match_matrix_torch(p1, p2, cutoff)
+    out = torch.empty((n, n), dtype=torch.uint8, device=p1.device)
+    if n == 0:
+        return out
+    _launch("match_matrix", "coral_match_matrix", p1,
+            p1.data_ptr(), p2.data_ptr(), out.data_ptr(), n, cutoff)
     return out

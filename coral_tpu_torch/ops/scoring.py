@@ -2,10 +2,10 @@
 ``coral_tpu/ops/scoring.py``, in two halves.
 
 **Host half (numpy).**  The packed pair layouts and their packers
-(:func:`pack_pair_cols`, :func:`pack_pairs2_host`, :func:`pack_pairs3_host`,
-the twins of the native ``bamcore`` packers), and the junction predicate
-on numpy arrays (:func:`pair_predicate_np` and its packed forms), which
-is the ``numpy`` engine.  These are the JAX package's functions with
+(:func:`pack_pair_cols`, :func:`pack_pair_cols2`, :func:`pack_pairs2_host`,
+:func:`pack_pairs3_host`, the twins of the native ``bamcore`` packers), and
+the junction predicate on numpy arrays (:func:`pair_predicate_np` and its
+packed forms), which is the ``numpy`` engine.  These are the JAX package's functions with
 ``xp=numpy`` written in; the port carries its own copy so that it loads
 without that package.
 
@@ -199,20 +199,64 @@ def pack_pairs2_host(pi, q_start, q_end, r1, r2, chrom, strand, mapq,
     """Host (numpy) emission of the v2 layout (:data:`PACKED2_COL_ORDER`)
     from flat ALIGNMENT columns for pairs (pi[p], pi[p]+1): the twin of
     the native ``bamcore.pack_pairs2``, bit-identical by test."""
-    i32 = np.int32
     pj = pi + 1
     iog = _alignment_gate(pi, chrom, r1, r2, int_chrom, int_start, int_end)
-    st = np.asarray(strand)
-    mi = np.clip(np.asarray(mapq)[pi].astype(i32), 0, 255)
-    mj = np.clip(np.asarray(mapq)[pj].astype(i32), 0, 255)
-    qgap = (q_start[pj] - q_end[pi]).astype(i32)
+    st, mq = np.asarray(strand), np.asarray(mapq)
+    return _zero_pad(
+        pack_pair_cols2(q_end[pi], q_start[pj], r2[pi], st[pi], mq[pi],
+                        r1[pj], st[pj], mq[pj], iog),
+        len(pi), n_out)
+
+
+def pack_pair_cols2(qi_end, qj_start, r2_i, strand_i, mapq_i,
+                    r1_j, strand_j, mapq_j, iog):
+    """Pack interval-resolved pair columns (numpy) into the 4-column v2
+    layout (:data:`PACKED2_COL_ORDER`).  ``iog`` is the combined gate of
+    :func:`combine_interval_gate`; MAPQ clamps to the BAM uint8 domain as
+    in :func:`pack_pair_cols`."""
+    i32 = np.int32
+    mi = np.clip(mapq_i.astype(i32), 0, 255)
+    mj = np.clip(mapq_j.astype(i32), 0, 255)
+    qgap = (qj_start - qi_end).astype(i32)
     meta = ((iog.astype(i32) + 1) << META2_IOG_SHIFT) \
         | (mi << META2_MAPQ_I_SHIFT) \
-        | ((st[pi] > 0).astype(i32) << META2_STRAND_I_SHIFT) \
+        | ((strand_i > 0).astype(i32) << META2_STRAND_I_SHIFT) \
         | (mj << META2_MAPQ_J_SHIFT) \
-        | (st[pj] > 0).astype(i32)
-    return _zero_pad((qgap, r2[pi].astype(i32), r1[pj].astype(i32), meta),
-                     len(pi), n_out)
+        | (strand_j > 0).astype(i32)
+    return qgap, r2_i.astype(i32), r1_j.astype(i32), meta
+
+
+def _unpack_meta2(meta, sign):
+    """The meta2 word -> (iog, strand_i, mapq_i, strand_j, mapq_j);
+    ``sign`` maps a strand bit to +1/-1 in the caller's array type."""
+    return (((meta >> META2_IOG_SHIFT) & 0x1FFF) - 1,
+            sign((meta >> META2_STRAND_I_SHIFT) & 1),
+            (meta >> META2_MAPQ_I_SHIFT) & 0xFF,
+            sign(meta & 1),
+            (meta >> META2_MAPQ_J_SHIFT) & 0xFF)
+
+
+def unpack_pair_meta2_np(meta):
+    """Inverse of the meta2 word on numpy arrays, strands as +1/-1 int32."""
+    return _unpack_meta2(
+        meta, lambda bit: np.where(bit > 0, 1, -1).astype(np.int32))
+
+
+def pair_predicate_packed2_np(qgap, r2_i, r1_j, meta, min_bp_match_cutoff,
+                              min_mapq, gap_):
+    """:func:`pair_predicate_np` over the resolved 4-column v2 layout, by
+    the substitutions of :func:`pair_predicate_packed2`.  Returns
+    (hit, iog); ``iog`` is not gated by MAPQ."""
+    iog, si, mi, sj, mj = unpack_pair_meta2_np(meta)
+    zero_i = np.zeros_like(qgap)
+    zero_f = np.zeros(qgap.shape, np.float32)
+    dummy = zero_i[:1]
+    return pair_predicate_np(
+        zero_i, qgap, zero_i, zero_i, r2_i, si, mi, zero_f,
+        zero_i, r1_j, zero_i, sj, mj, zero_f,
+        dummy, dummy, dummy,
+        min_bp_match_cutoff, min_mapq, gap_, np.inf,
+        first_overlap_fn=lambda *_: iog)
 
 
 def pack_pairs3_host(pi, q_start, q_end, r1, r2, chrom, strand, mapq,
@@ -354,6 +398,33 @@ def pair_predicate_packed(qgap, r1_i, r2_i, r1_j, r2_j, meta,
         min_bp_match_cutoff, min_mapq, gap_, math.inf)
 
 
+def unpack_pair_meta2(meta):
+    """Inverse of the meta2 word on a tensor: -> (iog, strand_i, mapq_i,
+    strand_j, mapq_j), strands as +1/-1."""
+    return _unpack_meta2(meta, lambda bit: bit * 2 - 1)
+
+
+def pair_predicate_packed2(qgap, r2_i, r1_j, meta, min_bp_match_cutoff,
+                           min_mapq, gap_):
+    """:func:`pair_predicate` over the resolved 4-column v2 layout
+    (``coral_tpu.ops.scoring.pair_predicate_packed2``): the plain version
+    of the v2 kernels.  The gate resolved at pack time is injected as the
+    interval search of both sides, and the chromosome, ``r1_i`` and
+    ``r2_j`` slots, which the decision never reads once the search is
+    resolved, are fed zeros.  Returns (hit, iog): unlike v3's ``iogm``,
+    ``iog`` is not gated by MAPQ, and hits bin by it."""
+    iog, si, mi, sj, mj = unpack_pair_meta2(meta)
+    zero_i = torch.zeros_like(qgap)
+    zero_f = torch.zeros(qgap.shape, dtype=torch.float32, device=qgap.device)
+    dummy = zero_i[:1]
+    return pair_predicate(
+        zero_i, qgap, zero_i, zero_i, r2_i, si, mi, zero_f,
+        zero_i, r1_j, zero_i, sj, mj, zero_f,
+        dummy, dummy, dummy,
+        min_bp_match_cutoff, min_mapq, gap_, math.inf,
+        first_overlap_fn=lambda *_: iog)
+
+
 def pair_predicate_packed3(qgap, grr, meta, min_bp_match_cutoff, gap_):
     """:func:`pair_predicate` over the resolved 3-column v3 layout, with
     the substitutions of ``coral_tpu.ops.scoring.pair_predicate_packed3``
@@ -397,26 +468,27 @@ def coverage_prefix_eval(tables, xs):
 class ScoringState(NamedTuple):
     """What crosses from the JAX package into the port: the interval
     table and the packed pair columns, as tensors on one device.  The
-    interval bounds are int64 for the v3 layout (the device never reads
-    them there, only the coverage query does) and int32 for the 6-column
-    layout, whose kernels scan them."""
+    interval bounds are int64 for the v3 and v2 layouts (the device never
+    reads them there, only the coverage query does) and int32 for the
+    6-column layout, whose kernels scan them."""
     int_chrom: torch.Tensor   # int32 (n_int,)
     int_start: torch.Tensor   # int64 or int32 (n_int,)
     int_end: torch.Tensor
-    packed: Tuple[torch.Tensor, ...]  # 3 or 6 int32 (n,) columns
+    packed: Tuple[torch.Tensor, ...]  # 3, 4 or 6 int32 (n,) columns
 
 
 def state_from_numpy(int_chrom, int_start, int_end, packed, *,
                      device) -> ScoringState:
     """The JAX package's numpy interval table and packed columns, v3
-    (``PACKED3_COL_ORDER``) or 6-column (``PACKED_COL_ORDER``) -> the
-    port's tensors on ``device``."""
-    if len(packed) not in (len(PACKED3_COL_ORDER), len(PACKED_COL_ORDER)):
-        raise ValueError(f"{len(packed)} packed columns: neither the v3 "
-                         "nor the 6-column layout")
+    (``PACKED3_COL_ORDER``), v2 (``PACKED2_COL_ORDER``) or 6-column
+    (``PACKED_COL_ORDER``) -> the port's tensors on ``device``."""
+    if len(packed) not in (len(PACKED3_COL_ORDER), len(PACKED2_COL_ORDER),
+                           len(PACKED_COL_ORDER)):
+        raise ValueError(f"{len(packed)} packed columns: neither the v3, "
+                         "the v2 nor the 6-column layout")
     dev = resolve_device(device)
-    bounds = torch.int64 if len(packed) == len(PACKED3_COL_ORDER) \
-        else torch.int32
+    bounds = torch.int32 if len(packed) == len(PACKED_COL_ORDER) \
+        else torch.int64
     return ScoringState(
         as_tensor(int_chrom, dev, torch.int32),
         as_tensor(int_start, dev, bounds),
@@ -435,12 +507,16 @@ def make_batch_scorer(int_chrom, int_start, int_end, engine: str = "torch",
     plain predicate and ``torch.bincount``.  ``engine='cuda'``:
     ``score(tables, qgap, grr, meta)`` over the v3 layout with the fused
     predicate + histogram kernel (K2), at most ``MAX_PACKED2_INTERVALS``
-    intervals.  ``engine='cuda6'`` (``engine='pallas6'`` there):
+    intervals.  ``engine='cuda2'`` (``engine='pallas2'`` there):
+    ``score(tables, qgap, r2_i, r1_j, meta)`` over the v2 layout with its
+    fused kernel (K6), which applies the MAPQ gate and derives the
+    reference jump itself; the same limit.  ``engine='cuda6'``
+    (``engine='pallas6'`` there):
     ``score(tables, qgap, r1_i, r2_i, r1_j, r2_j, meta)`` over the
     6-column layout with the kernel that scans the interval table itself
     (K4), any number of intervals; the kernel scans the low 32 bits of the
     bounds (``np.asarray(int_start, np.int32)`` there) and the coverage
-    query reads all 64.  The two CUDA engines have no NM gate.
+    query reads all 64.  The CUDA engines have no NM gate.
 
     Returns (build_tables, score); ``score`` -> (support int32, cov int64).
     """
@@ -460,15 +536,16 @@ def make_batch_scorer(int_chrom, int_start, int_end, engine: str = "torch",
         return coverage_prefix_eval(tables, ie) \
             - coverage_prefix_eval(tables, is_)
 
-    if engine in ("cuda", "cuda6"):
+    if engine in ("cuda", "cuda2", "cuda6"):
         if not math.isinf(params["max_nm"]):
             raise ValueError(f"engine={engine!r} has no NM gate")
         cutoff, gap_ = params["min_bp_match_cutoff"], params["gap_"]
+        min_mapq = int(math.ceil(params["min_mapq"]))
+    if engine in ("cuda", "cuda2") and n_int > MAX_PACKED2_INTERVALS:
+        raise ValueError(
+            f"{n_int} intervals exceed the resolved layouts' "
+            f"{MAX_PACKED2_INTERVALS}; use engine='cuda6'")
     if engine == "cuda":
-        if n_int > MAX_PACKED2_INTERVALS:
-            raise ValueError(
-                f"{n_int} intervals exceed the v3 layout's "
-                f"{MAX_PACKED2_INTERVALS}; use engine='cuda6'")
         from .kernels import pair3_support
 
         def score(tables, qgap, grr, meta):
@@ -478,11 +555,20 @@ def make_batch_scorer(int_chrom, int_start, int_end, engine: str = "torch",
             return support, cov(tables)
 
         return build_tables, score
+    if engine == "cuda2":
+        from .kernels import pair2_support
+
+        def score(tables, *packed2):
+            support = pair2_support(
+                *(as_tensor(c, dev, torch.int32) for c in packed2),
+                n_int, cutoff, min_mapq, gap_)
+            return support, cov(tables)
+
+        return build_tables, score
     if engine == "cuda6":
         from .kernels import pair6_support
 
         table32 = ic, is_.to(torch.int32), ie.to(torch.int32)
-        min_mapq = int(math.ceil(params["min_mapq"]))
 
         def score(tables, *packed6):
             support = pair6_support(
@@ -492,7 +578,8 @@ def make_batch_scorer(int_chrom, int_start, int_end, engine: str = "torch",
 
         return build_tables, score
     if engine != "torch":
-        raise ValueError(f"unknown engine {engine!r} (torch, cuda or cuda6)")
+        raise ValueError(f"unknown engine {engine!r} (torch, cuda, cuda2 or "
+                         "cuda6)")
 
     def score(tables, *cols):
         hit, io = pair_predicate(*(as_tensor(c, dev) for c in cols),

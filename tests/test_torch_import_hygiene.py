@@ -70,7 +70,7 @@ for n in names:
     importlib.import_module(n)
 print(len(names))
 ''', tmp_path)
-    assert int(out.split()[-1]) >= 35
+    assert int(out.split()[-1]) >= 36
 
 
 def test_pair_scoring_runs_without_jax(tmp_path):
@@ -103,6 +103,28 @@ rows = subset_to_bps_batch(store, sorted(store.names),
 assert len(rows) > 0
 bamf.close()
 ''' % str(tmp_path), tmp_path)
+
+
+def test_coverage_and_clustering_run_without_jax(tmp_path):
+    """``ops/coverage.py`` loads and answers, and ``cluster_breakpoints``
+    takes its match matrix from the port's own kernels module, with
+    ``jax`` and ``coral_tpu`` blocked."""
+    _run(r'''
+import numpy as np
+from coral_tpu_torch.ops.breakpoints import cluster_breakpoints
+from coral_tpu_torch.ops.coverage import CoverageIndex, bin_coverage
+
+s = np.array([0, 50, 120]); e = np.array([100, 150, 130])
+index = CoverageIndex(s, e, device="cpu")
+want = [150, 60, 0]
+assert index.bin_histogram(0, 100, 3).tolist() == want
+assert bin_coverage(s, e, 0, 100, 3, device="cpu").tolist() == want
+assert index.interval_coverage([40], [60]).tolist() == [30]
+bps = [["chr1", 100 + k, "+", "chr1", 900 + k, "-", ("r", 0, 1), 0, 0,
+        60, 60] for k in range(4)]
+assert len(cluster_breakpoints(bps, 2, 50, engine="torch",
+                               device="cpu")) == 1
+''', tmp_path)
 
 
 def test_reconstruct_cli_runs_without_jax(tmp_path):

@@ -161,7 +161,8 @@ def test_cpu_wrappers_do_not_launch():
     kernels.stream_control(*_cpu(dense_case(N, 16, seed=0)))
     assert kernels.LAUNCHES == before
     assert set(before) == {"pair3", "pair3_support", "pair6",
-                           "pair6_support", "stream_control"}
+                           "pair6_support", "stream_control", "pair2",
+                           "pair2_support", "bin_overlap", "match_matrix"}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "length", "strided", "columns",

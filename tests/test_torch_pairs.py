@@ -266,11 +266,24 @@ def test_native_packers_equal_host_twins(chimeras):
 
 
 def test_cluster_breakpoints_device_engine_is_not_ported():
+    """The name dates from before K9 (the match-matrix kernel) was ported;
+    what it holds now: ``engine="cuda"`` raises without a card instead of
+    clustering on the host, and an engine that does not exist (the JAX
+    package's ``pallas`` included) raises ``ValueError``."""
+    import torch
+
     from coral_tpu_torch.ops.breakpoints import cluster_breakpoints
 
     bps = [["chr1", 100 + k, "+", "chr1", 900 + k, "-", ("r", 0, 1), 0, 0,
             60, 60] for k in range(4)]
     assert len(cluster_breakpoints(bps, 2, 50)) == 1
-    for engine in ("cuda", "pallas"):
-        with pytest.raises(NotImplementedError, match="K9"):
+    for engine in ("pallas", "numpy", ""):
+        with pytest.raises(ValueError, match="unknown engine"):
             cluster_breakpoints(bps, 2, 50, engine=engine)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            cluster_breakpoints(bps, 2, 50, engine="cuda")
+        with pytest.raises(RuntimeError, match="cuda"):
+            cluster_breakpoints(bps, 2, 50, engine="torch", device="cuda")
+    with pytest.raises(ValueError, match="CUDA device"):
+        cluster_breakpoints(bps, 2, 50, engine="cuda", device="cpu")
