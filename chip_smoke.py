@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (``coral_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, the result lines
+    python3 chip_smoke.py --kernels    # phases 1-3 only, no result lines
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
@@ -14,9 +15,13 @@ exits non-zero:
    event timings: K1, K2 and the copy control K7 over the v3 layout and
    K5, K6 over the v2 layout at 2^21 pairs and 16 intervals (also against
    numpy; K5 and K6 against K1 and K2 on the same pairs), K3 and K4 over
-   the 6-column layout at 2^21 pairs with 16 and with 8,200 intervals, K8
-   at 2^21 reads over 256 and over 65,536 bins (also against the
-   prefix-sum histogram), K9 at 2,048, 1,001 and 4,096 positions;
+   the 6-column layout at 2^21 pairs with 16 and with 8,200 intervals (and
+   K4 ÷ K3), once with every hit on 14 intervals whose slots in K4's bin
+   cache collide, K8 at 2^21 reads over 256 and over 65,536 bins, at
+   n_bins either side of each switch of its plan on this card, and over
+   the reads sorted by start (also against the prefix-sum histogram), with
+   K8 forced onto each of its routes at several bin counts, K9 at 2,048,
+   1,001 and 4,096 positions;
 4. the main paths at WGS scale, on the junction-heavy 10-chromosome
    sample (5,179,920 records, 1.5 M pairs):
    a. reconstruct with the ``cuda`` engine (K1) and the fused batch
@@ -32,7 +37,8 @@ exits non-zero:
       engines and K5's hit mask against K1's of 4a;
    d. coverage: the sample's read spans, chromosome by chromosome, through
       ``bin_coverage(engine="cuda")`` (K8) against
-      ``CoverageIndex.bin_histogram`` and, on one chromosome, numpy;
+      ``CoverageIndex.bin_histogram`` and, on one chromosome, numpy (and
+      K8 forced onto each route there);
    e. clustering: ``cluster_breakpoints(engine="cuda")`` (K9) against
       ``engine="host"`` on the breakpoint rows of the mixed sample and on
       a seeded list with groups of 1,000 to 4,096 members and one past
@@ -75,6 +81,11 @@ N_PAIRS = 1 << 21
 N_INT = 16
 N_INT_LONG = 8200
 N_DECOYS = 8190
+# K4 above 8190 intervals keeps a direct-mapped cache of 2048 bins (slot =
+# bin % 2048, csrc/pair6.cu): these windows and the last interval (8199,
+# slot 7) fall on six slots, three of them shared by three or four bins
+HOT_WINDOWS = [3, 3 + 2048, 3 + 4096, 3 + 6144, 100, 100 + 2048, 100 + 4096,
+               2047, 2047 + 2048, 2047 + 4096, 2047 + 6144, 1000, 5000]
 CUTOFF = 100
 MIN_MAPQ = 20
 GAP = 100.0
@@ -276,9 +287,12 @@ def dense_case(n: int, n_int: int, seed: int):
             meta.astype(np.int32)]
 
 
-def dense_case6(n: int, n_int: int, seed: int):
+def dense_case6(n: int, n_int: int, seed: int, hot=None):
     """An int32 interval table of ``n_int`` rows and 6-column pair columns
-    of which about a fifth hit.  Intervals 0..n_int-2 are 200 kb windows,
+    of which about a fifth hit (with ``hot``, a list of window indices, the
+    sides fall only in those windows, past every window or on the last
+    interval, so the hits fall on at most ``len(hot) + 1`` intervals).
+    Intervals 0..n_int-2 are 200 kb windows,
     400 kb apart, on chromosome codes 0..23 in turn; the last interval
     spans all of int32 on code 30.  Rows: both sides in one window, in two
     windows or in none; '-' strand sides stored r1 > r2; MAPQ on both sides
@@ -309,7 +323,10 @@ def dense_case6(n: int, n_int: int, seed: int):
         return ic[w].astype(np.int64), lo, \
             lo + rng.integers(100, 5_000, len(win))
 
-    if n_win:
+    if hot is not None:
+        win_i = rng.choice(np.append(np.asarray(hot), -1), n)
+        win_j = np.where(rng.random(n) < 0.8, win_i, rng.choice(hot, n))
+    elif n_win:
         win_i = rng.integers(-max(n_win // 3, 1), n_win, n)
         win_j = np.where(rng.random(n) < 0.8, win_i,
                          rng.integers(-1, n_win, n))
@@ -735,9 +752,10 @@ def check_v2(kernels, case, packed, n_int, report, tag="3 kernels"):
 
 
 def check_bins(kernels, case, starts, ends, origin, bin_size, n_bins, report,
-               tag="3 kernels"):
-    """K8 against its plain version and the prefix-sum histogram on one
-    set of reads; fills ``report`` and returns the histogram (numpy)."""
+               tag="3 kernels", route="auto"):
+    """K8 (on ``route``) against its plain version and the prefix-sum
+    histogram on one set of reads; fills ``report`` and returns the
+    histogram (numpy)."""
     import torch
 
     from coral_tpu_torch.ops.coverage import CoverageIndex
@@ -745,25 +763,98 @@ def check_bins(kernels, case, starts, ends, origin, bin_size, n_bins, report,
     s = torch.from_numpy(starts).cuda()
     e = torch.from_numpy(ends).cuda()
     args = (s, e, origin, bin_size, n_bins)
-    got = kernels.bin_overlap(*args)
+    got = kernels.bin_overlap(*args, route=route)
     want = kernels.bin_overlap_torch(*args)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
-    require(torch.equal(got, want), f"K8 != plain ({case})")
+    require(torch.equal(got, want), f"K8 != plain ({case}, {route})")
     hist = got.cpu().numpy()
     index = CoverageIndex(starts, ends, device="cuda")
     require(np.array_equal(hist, index.bin_histogram(origin, bin_size,
                                                      n_bins)),
-            f"K8 != CoverageIndex.bin_histogram ({case})")
+            f"K8 != CoverageIndex.bin_histogram ({case}, {route})")
+    plan = kernels.bin_overlap_plan(len(starts), n_bins, "cuda", route)
     what = f"{case}, {len(starts)} reads, {n_bins} bins of {bin_size}"
     rep = {"bin_overlap": _row(
-        what, err, lambda: kernels.bin_overlap(*args),
+        f"{what}, {plan['route']} route", err,
+        lambda: kernels.bin_overlap(*args, route=route),
         lambda: kernels.bin_overlap_torch(*args),
         bound_bins(starts, ends, origin, bin_size, n_bins), plain_reps=5)}
     report["bin_overlap"].append(rep["bin_overlap"])
-    _log_rows(tag, f"bins {what}: bases={int(hist.sum())} "
-              f"K8==plain==prefix sums", rep)
+    _log_rows(tag, f"bins {what}, route {route} -> {plan}: "
+              f"bases={int(hist.sum())} K8==plain==prefix sums", rep)
     return hist
+
+
+def bin_switches(kernels, n: int):
+    """The n_bins on either side of each switch of K8's plan for ``n``
+    reads on this card: where the bins stop fitting one tile (shared
+    route) and where the rule turns to the global route."""
+    def first(pred, route):
+        lo, hi = 1, 1 << 20
+        if not pred(kernels.bin_overlap_plan(n, hi, "cuda", route)):
+            return None
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if pred(kernels.bin_overlap_plan(n, mid, "cuda", route)):
+                hi = mid
+            else:
+                lo = mid
+        return hi
+
+    cuts = (first(lambda p: p["tiles"] > 1, "shared"),
+            first(lambda p: p["route"] == "global", "auto"))
+    return sorted({x for c in cuts if c for x in (c - 1, c)})
+
+
+def device_us(fn, reps: int = 20) -> dict:
+    """Device time per call (us) of each kernel and memset that ``fn``
+    launches, from ``torch.profiler``; {"profiler failed": reason} where
+    the profiler sees no device time on this machine."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+    except Exception as exc:   # a diagnostic line, not a check
+        return {"profiler failed": repr(exc)[:80]}
+    out = {}
+    for r in rows:
+        t = getattr(r, "device_time_total", None)
+        if t is None:
+            t = getattr(r, "cuda_time_total", 0)
+        if t:
+            out[r.key[:48]] = round(t / reps, 2)
+    return out
+
+
+def study_bin_routes(kernels, case, starts, ends, bin_size, n_bins,
+                     tag="3 kernels"):
+    """K8 forced onto each route on one set of reads (bins from 0), both
+    equal to the plain version: the times the rule of csrc/bins.cu is read
+    against."""
+    import torch
+
+    s = torch.from_numpy(starts).cuda()
+    e = torch.from_numpy(ends).cuda()
+    args = (s, e, 0, bin_size, n_bins)
+    want = kernels.bin_overlap_torch(*args)
+    ms = {}
+    for route in ("shared", "global"):
+        require(torch.equal(kernels.bin_overlap(*args, route=route), want),
+                f"K8 on the {route} route != plain ({case}, {n_bins} bins)")
+        ms[route] = cuda_ms(lambda: kernels.bin_overlap(*args, route=route))
+    auto = kernels.bin_overlap_plan(len(starts), n_bins, "cuda")
+    log(f"[{tag}] K8 routes, {case}, {len(starts)} reads, {n_bins} bins: "
+        f"ms shared {ms['shared']:.4f} global {ms['global']:.4f}; the rule "
+        f"takes {auto}; device us a call (profiler): "
+        f"{device_us(lambda: kernels.bin_overlap(*args))}")
 
 
 def check_match(kernels, case, p1, p2, cutoff, report, tag="3 kernels"):
@@ -790,7 +881,8 @@ def check_match(kernels, case, p1, p2, cutoff, report, tag="3 kernels"):
               f"{t_copy * 1e3:.3f} ms", rep)
 
 
-def check_6col(kernels, case, ints, packed, report, plain_reps=30):
+def check_6col(kernels, case, ints, packed, report, plain_reps=30,
+               tag="3 kernels"):
     """K3 and K4 against their plain versions on one 6-column case; fills
     ``report`` and returns the kernel's hit mask (numpy)."""
     import torch
@@ -827,9 +919,23 @@ def check_6col(kernels, case, ints, packed, report, plain_reps=30):
     for name, (kern, plain, bound) in fns.items():
         report[name] = _row(f"{case}, {n} pairs, {n_int} intervals",
                             errs[name], kern, plain, bound, plain_reps)
-    _log_rows("3 kernels", f"6-column {case}: n={n} n_int={n_int} "
+    if os.environ.get("CORAL_K4_SWEEP"):
+        k4 = {}
+        for cap in ("8", "4", "2", "1"):
+            os.environ["CORAL_K4_BLOCKS_PER_SM"] = cap
+            require(torch.equal(kernels.pair6_support(*args, **kw), sup_p),
+                    f"K4 != plain at {cap} blocks an SM ({case})")
+            k4[cap] = round(cuda_ms(
+                lambda: kernels.pair6_support(*args, **kw)), 4)
+        del os.environ["CORAL_K4_BLOCKS_PER_SM"]
+        log(f"[{tag}] 6-column {case}: K4 ms by blocks an SM {k4}, K3 "
+            f"{report['pair6']['ms']:.4f}")
+    sup = sup_k.cpu().numpy()
+    _log_rows(tag, f"6-column {case}: n={n} n_int={n_int} "
               f"hits={int(hit_k.sum())} found_i={int((io >= 0).sum())} "
-              f"K3==plain K4==plain", report)
+              f"bins hit={int((sup > 0).sum())} K3==plain K4==plain", report)
+    log(f"[{tag}] 6-column {case}: K4/K3 "
+        f"{report['pair6_support']['ms'] / report['pair6']['ms']:.3f}")
     return hit_k.cpu().numpy()
 
 
@@ -857,7 +963,10 @@ def phase_kernels() -> dict:
     for case, ints, packed, reps in (
             ("bench", bench_ints, bench6, 30),
             ("dense", *dense_case6(N_PAIRS, N_INT, seed=11), 30),
-            ("dense", *dense_case6(N_PAIRS, N_INT_LONG, seed=13), 2)):
+            ("dense", *dense_case6(N_PAIRS, N_INT_LONG, seed=13), 2),
+            ("hot bins, colliding cache slots",
+             *dense_case6(N_PAIRS, N_INT_LONG, seed=19, hot=HOT_WINDOWS),
+             2)):
         rep = {}
         hit = check_6col(kernels, case, ints, packed, rep, plain_reps=reps)
         keep(rep)
@@ -875,9 +984,29 @@ def phase_kernels() -> dict:
                          ("dense", dense_case2(N_PAIRS, N_INT, seed=17))):
         check_v2(kernels, case, packed, N_INT, reports)
     starts, ends = synth_reads(N_READS)
-    for n_bins in (256, 1 << 16):
+    order = np.argsort(starts, kind="stable")
+    sorted_reads = starts[order], ends[order]
+    switches = bin_switches(kernels, N_READS)
+    log(f"[3 kernels] K8 plan switches for {N_READS} reads: n_bins "
+        f"{switches}")
+    for n_bins in (256, 1 << 16, *switches):
         check_bins(kernels, "bench", starts, ends, 0, READ_SPAN // n_bins,
                    n_bins, reports)
+    for n_bins in (256, 1 << 16):
+        check_bins(kernels, "bench sorted by start", *sorted_reads, 0,
+                   READ_SPAN // n_bins, n_bins, reports)
+    for n_bins in (256, 4096, 1 << 14, *switches, 1 << 16, 1 << 18):
+        study_bin_routes(kernels, "bench", starts, ends, READ_SPAN // n_bins,
+                         n_bins)
+    for n_bins in (256, 1 << 16):
+        study_bin_routes(kernels, "bench sorted by start", *sorted_reads,
+                         READ_SPAN // n_bins, n_bins)
+    # the shape of phase 4d: one chromosome's sorted reads of 1.5 kb
+    rng = np.random.default_rng(3)
+    n_chr = -(-WGS_CHR_LEN // COVERAGE_BIN)
+    ws = np.sort(rng.integers(0, WGS_CHR_LEN - 1500, 517_992)).astype(np.int32)
+    study_bin_routes(kernels, "WGS-like, sorted reads of 1.5 kb", ws,
+                     ws + 1500, COVERAGE_BIN, n_chr)
     rng = np.random.default_rng(2)
     for n in (2048, 1001, 4096):
         check_match(kernels, "bench",
@@ -1211,7 +1340,7 @@ def phase_six_column_path(rec, scoring, report):
     rep = {}
     hit_k = check_6col(kernels, "WGS sample, decoys last",
                        (ic, is_.astype(np.int32), ie.astype(np.int32)),
-                       packed6, rep, plain_reps=2)
+                       packed6, rep, plain_reps=2, tag="4b wgs6")
     require(np.array_equal(hit_k, hit_c), "K3 at the path's shape != path")
     for name, r in rep.items():
         report[name].append(r)
@@ -1219,7 +1348,7 @@ def phase_six_column_path(rec, scoring, report):
     rep_f = {}
     check_6col(kernels, "WGS sample, decoys first",
                (fc, fs.astype(np.int32), fe.astype(np.int32)), packed6,
-               rep_f, plain_reps=2)
+               rep_f, plain_reps=2, tag="4b wgs6")
     for name, r in rep_f.items():
         # its times stay in the log; its error joins the result line's
         report[name][-1]["max_abs_err"] = max(
@@ -1348,6 +1477,8 @@ def phase_coverage_path(rec, report):
     hist = check_bins(kernels, "WGS sample, one chromosome", *spans[0], 0,
                       COVERAGE_BIN, n_bins, report, tag="4d bins")
     require(np.array_equal(hist, hists[0]), "K8 at the path's shape != path")
+    study_bin_routes(kernels, "WGS sample, one chromosome", *spans[0],
+                     COVERAGE_BIN, n_bins, tag="4d bins")
     log(f"[4d bins] {n_reads} reads on {len(spans)} chromosomes, {n_bins} "
         f"bins of {COVERAGE_BIN} each: bin_coverage(cuda) {t_bins:.3f} s "
         f"(copies included) == CoverageIndex.bin_histogram ({t_index:.3f} s, "
@@ -1479,6 +1610,10 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     report = phase_kernels()
+    if sys.argv[1:] == ["--kernels"]:
+        # phases 1-3 alone: no main path, so no result line
+        log(f"[done] phases 1-3 in {time.perf_counter() - t_start:.1f} s")
+        return 0
     with tempfile.TemporaryDirectory() as work:
         rec, launches, wgs_errs, scoring = phase_main_path(work)
         launches6 = phase_six_column_path(rec, scoring, report)

@@ -5,100 +5,556 @@
 // [origin + b * bin_size, origin + (b + 1) * bin_size):
 //   out[b] = sum over reads of max(min(e, hi_b) - max(s, lo_b), 0).
 // The TPU kernel tests every read against every bin, because its vector
-// unit has no scatter.  Here a thread takes one read, finds its first bin
-// with one division and walks only the bins the read touches, adding each
-// overlap with an atomic: into per-block shared-memory bins (64-bit,
-// flushed once per block with one global atomic per non-zero bin) while
-// the bins fit there, else straight into the output.  Integer adds
-// commute, so the totals are exact and the same on every run.  A read
-// with e <= s (a pad, or an empty read) adds nothing; a read that starts
-// before `origin` or ends past the last edge is clipped.
+// unit has no scatter.  Here a read costs a fixed number of updates however
+// many bins it spans.  Clipped to [lo, hi), it touches bins b0..b1:
+//   b0 == b1:  partial[b0] += hi - lo;
+//   otherwise: partial[b0] += (lower edge of b0 + 1) - lo,
+//              partial[b1] += hi - (lower edge of b1),
+//              and the whole bins b0+1..b1-1 go into a difference array
+//              of counts, +1 at b0 + 1 and -1 at b1 (nothing if b1 = b0+1);
+//   out[b] = partial[b] + bin_size * (count[0] + ... + count[b]).
+// That is at most four updates a read (PR 3's kernel made one atomic per
+// touched bin: about eleven a read at 65,536 bins over the bench reads).
+// A read with e <= s (a pad, or an empty read) adds nothing; a read that
+// starts before `origin` or ends past the last edge is clipped.
+//
+// What bounds it on this card: the 8 B read per read against 3.35 TB/s,
+// once the updates stay on the SM; PR 3's kernel was 5-26x that bound,
+// held back by its atomics.  So the updates are merged before they are
+// made: a thread takes kRun contiguous reads (one int4 load a column) and
+// keeps a running (bin, sum) of the partials, which it hands on with one
+// atomic only when the bin changes; at the end of the run the warp hands
+// on its lanes' sums, with one atomic when all 32 hold the same bin
+// (sorted reads) and one a lane otherwise.  A first version combined the
+// lanes at every hand-on with __match_any_sync and warp reductions, as
+// K4 does; over random reads, where nothing combines, that cost 4x PR 3's
+// time at 256 bins (see PERF.md, PR 4).  A read's bins come from a 32-bit
+// multiply-high by a precomputed reciprocal (Granlund and Montgomery)
+// wherever the binned range is shorter than 2^32 (every chromosome), and
+// everything after the clip is then 32-bit.
+//
+// Where the sums live (one rule, `plan_for`):
+// - "shared": the bins are cut into tiles of at most what a block may hold
+//   in shared memory (the card's opt-in limit, 227 KB on an H100: 12 B a
+//   bin: partials as two 32-bit words with an explicit carry, so that every
+//   shared-memory atomic is a native 32-bit one, and int32 counts; 19,285
+//   bins a tile).  A block owns one tile and a chunk of the reads, takes
+//   from each read only the updates that fall in its tile (counts before
+//   the tile go into a carry), runs its own scan of the counts and adds
+//   partial + bin_size * prefix into `out` once, one 64-bit atomic per
+//   non-zero bin.  The grid is one wave of resident blocks
+//   (cudaOccupancyMaxActiveBlocksPerMultiprocessor), cut into tiles x
+//   chunks, every block with the same number of chunks.  Its cost beyond
+//   the reads is that flush, chunks x n_bins bins, and reading the reads
+//   once per tile.
+// - "global": partials (64-bit) go straight into `out` and counts into a
+//   zeroed int32 array with global atomics; a second kernel, bin_scan,
+//   adds bin_size * prefix(count) into `out`.  Its cost beyond the reads
+//   is the atomics in L2, up to four a read.
+// The rule takes "shared" unless its flush and re-reads, counted in bins
+// and reads, exceed kGlobalPerRead times the reads.  Integer adds commute,
+// so the totals are exact and the same on every run.
 //
 // Edges and sums are int64: the TPU kernel casts the edges to int32 and
-// sums in int32, so this kernel equals it wherever neither wraps.
-//
-// What bounds it: 8 B read per read against 3.35 TB/s when a read touches
-// one or two bins; the walk (about 10 integer operations a touched bin)
-// and the atomics when bins are much shorter than reads.
+// sums in int32, so this kernel equals it wherever neither wraps.  Counts
+// are taken modulo 2^32; a prefix is a number of reads, so n < 2^32.
+
+#include <algorithm>
+#include <initializer_list>
 
 #include "pair_common.cuh"
 
 namespace {
 
-using coral::grid_for;
-using coral::kThreads;
-
-// a block counts into shared memory up to this many bins (32 KB)
-constexpr int kSharedBins = 4096;
-
 typedef unsigned long long u64;
 
-// `narrow`: origin-relative coordinates of the binned range fit 32 bits,
-// so the one division per read is a 32-bit one.
-__global__ void __launch_bounds__(kThreads)
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// threads a block: kWideBlock when a tile takes more than a quarter of the
+// shared memory a block may have (an SM then holds one to three such
+// blocks), else kNarrowBlock, so that an SM holds several blocks whose
+// phases overlap
+constexpr int kWideBlock = 1024;
+constexpr int kNarrowBlock = 256;
+constexpr int kRun = 4;              // contiguous reads a thread, one int4
+constexpr int kBytesPerBin = 12;     // partial (2 x u32) + count (int32)
+constexpr int kStaticSmem = 1024;    // left for the kernels' static arrays
+constexpr int kScanThreads = 1024;
+constexpr int kScanTile = 8192;      // bins a block of bin_scan
+constexpr int kScanBlocks = 32;
+// the rule: "shared" while chunks x n_bins + (tiles - 1) x n is at most
+// this many times n
+constexpr int kGlobalPerRead = 8;
+
+struct Bins {
+  int64_t origin;
+  int64_t bin_size;
+  int64_t last_edge;
+  int32_t n_bins;
+  // bin = (t + ((x - t) >> sh1)) >> sh2 with t = umulhi(magic, x), for x
+  // below 2^32 (Granlund and Montgomery's round-up multiplier): set when
+  // the binned range is shorter than 2^32, so offsets are 32-bit
+  uint32_t magic;
+  int sh1, sh2;
+
+  __device__ __forceinline__ uint32_t div32(uint32_t x) const {
+    const uint32_t t = __umulhi(magic, x);
+    return (t + ((x - t) >> sh1)) >> sh2;
+  }
+};
+
+// The updates of one read: partials (b0, v0) and (b1, v1) (bin -1: none)
+// and, if `whole`, the count difference +1 at b0 + 1 and -1 at b1.
+struct Events {
+  int32_t b0, b1;
+  u64 v0, v1;
+  bool whole;
+};
+
+// kNarrow: the range is shorter than 2^32 (Bins::magic), so everything
+// after the clip is 32-bit: offsets, bins, edges and overlaps.
+template <bool kNarrow>
+__device__ __forceinline__ Events read_events(const Bins& g, int64_t s,
+                                              int64_t e) {
+  Events ev{-1, -1, 0, 0, false};
+  const int64_t lo = s > g.origin ? s : g.origin;
+  const int64_t hi = e < g.last_edge ? e : g.last_edge;
+  if (hi <= lo) return ev;
+  if (kNarrow) {
+    const uint32_t rlo = static_cast<uint32_t>(lo - g.origin);
+    const uint32_t rhi = static_cast<uint32_t>(hi - g.origin);
+    const uint32_t bs = static_cast<uint32_t>(g.bin_size);
+    const uint32_t b0 = g.div32(rlo), b1 = g.div32(rhi - 1);
+    ev.b0 = static_cast<int32_t>(b0);
+    if (b1 == b0) {
+      ev.v0 = rhi - rlo;
+      return ev;
+    }
+    ev.v0 = (b0 + 1) * bs - rlo;
+    ev.b1 = static_cast<int32_t>(b1);
+    ev.v1 = rhi - b1 * bs;
+    ev.whole = b1 > b0 + 1;
+    return ev;
+  }
+  const u64 bs = static_cast<u64>(g.bin_size);
+  const u64 rlo = static_cast<u64>(lo - g.origin);
+  const u64 rhi = static_cast<u64>(hi - g.origin);
+  const u64 b0 = rlo / bs, b1 = (rhi - 1) / bs;
+  ev.b0 = static_cast<int32_t>(b0);
+  if (b1 == b0) {
+    ev.v0 = rhi - rlo;
+    return ev;
+  }
+  ev.v0 = (b0 + 1) * bs - rlo;
+  ev.b1 = static_cast<int32_t>(b1);
+  ev.v1 = rhi - b1 * bs;
+  ev.whole = b1 > b0 + 1;
+  return ev;
+}
+
+// For i < tn, emit(i, carry + count(0) + ... + count(i)) (uint32): the
+// block's warps take consecutive segments, the lanes consecutive bins,
+// and a warp scan with shuffles carries the running count.  Every thread
+// of the block calls it (it synchronises).
+template <typename Count, typename Emit>
+__device__ __forceinline__ void block_scan(int32_t tn, uint32_t carry,
+                                           Count count, Emit emit,
+                                           uint32_t* warp_sums) {
+  const int nw = blockDim.x / 32;
+  const int w = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int64_t seg = ((static_cast<int64_t>(tn) + nw - 1) / nw + 31) & ~31LL;
+  const int64_t a64 = w * seg;
+  const int32_t a = static_cast<int32_t>(a64 < tn ? a64 : tn);
+  const int32_t z = static_cast<int32_t>(a64 + seg < tn ? a64 + seg : tn);
+  uint32_t sum = 0;
+  for (int32_t i = a + lane; i < z; i += 32) {
+    sum += static_cast<uint32_t>(count(i));
+  }
+  sum = __reduce_add_sync(kFull, sum);
+  if (lane == 0) warp_sums[w] = sum;
+  __syncthreads();
+  uint32_t run = carry;
+  for (int k = 0; k < w; ++k) run += warp_sums[k];
+  for (int32_t i0 = a; i0 < z; i0 += 128) {
+    uint32_t x[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int32_t i = i0 + 32 * q + lane;
+      x[q] = i < z ? static_cast<uint32_t>(count(i)) : 0u;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      for (int d = 1; d < 32; d <<= 1) {
+        const uint32_t y = __shfl_up_sync(kFull, x[q], d);
+        if (lane >= d) x[q] += y;
+      }
+      const int32_t i = i0 + 32 * q + lane;
+      if (i < z) emit(i, run + x[q]);
+      run += __shfl_sync(kFull, x[q], 31);
+    }
+  }
+}
+
+// A read's bin, x in [origin, last_edge)
+template <bool kNarrow>
+__device__ __forceinline__ int32_t bin_of(const Bins& g, int64_t x) {
+  return kNarrow ? static_cast<int32_t>(
+                       g.div32(static_cast<uint32_t>(x - g.origin)))
+                 : static_cast<int32_t>(static_cast<u64>(x - g.origin) /
+                                        static_cast<u64>(g.bin_size));
+}
+
+// kRun reads from `first` ([0, 0), which adds nothing, past the end)
+template <int kRun_>
+__device__ __forceinline__ void load_run(const int32_t* __restrict__ starts,
+                                         const int32_t* __restrict__ ends,
+                                         int64_t n, int64_t first, int vec,
+                                         int32_t* s, int32_t* e) {
+  if (vec && first + kRun_ <= n) {
+    const int4* s4 = reinterpret_cast<const int4*>(starts + first);
+    const int4* e4 = reinterpret_cast<const int4*>(ends + first);
+#pragma unroll
+    for (int q = 0; q < kRun_ / 4; ++q) {
+      const int4 a = s4[q], b = e4[q];
+      s[4 * q] = a.x; s[4 * q + 1] = a.y; s[4 * q + 2] = a.z;
+      s[4 * q + 3] = a.w;
+      e[4 * q] = b.x; e[4 * q + 1] = b.y; e[4 * q + 2] = b.z;
+      e[4 * q + 3] = b.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kRun_; ++k) {
+    const bool in = first + k < n;
+    s[k] = in ? starts[first + k] : 0;
+    e[k] = in ? ends[first + k] : 0;
+  }
+}
+
+// The scatter of both routes.  Block (x, y) takes the chunks x, x +
+// gridDim.x, ... of kThr * kRun reads; on the shared route it owns
+// the tile of bins [y * tile, y * tile + tile), on the global route all
+// bins (gridDim.y = 1) and `counts` is a zeroed int32 array of n_bins.
+// On the shared route a block whose one chunk is all its reads first
+// finds the bins they reach and zeroes, scans and flushes only those (a
+// chunk of sorted reads reaches a few bins of a tile of thousands).
+template <bool kShared, bool kNarrow, int kThr>
+__global__ void __launch_bounds__(kThr, 2048 / kThr)
 bin_overlap_kernel(const int32_t* __restrict__ starts,
-                   const int32_t* __restrict__ ends, int64_t n,
-                   int64_t origin, int64_t bin_size, int32_t n_bins,
-                   int narrow, u64* __restrict__ out) {
-  extern __shared__ u64 acc[];
-  const bool shared_bins = n_bins <= kSharedBins;
-  u64* bins = shared_bins ? acc : out;
-  if (shared_bins) {
-    for (int b = threadIdx.x; b < n_bins; b += blockDim.x) acc[b] = 0;
+                   const int32_t* __restrict__ ends, int64_t n, Bins g,
+                   int32_t tile, int vec, u64* __restrict__ out,
+                   int32_t* __restrict__ counts) {
+  extern __shared__ uint32_t smem[];
+  __shared__ uint32_t warp_sums[kThr / 32];
+  __shared__ uint32_t carry_total;
+  __shared__ int32_t reach_lo, reach_hi;
+  const int32_t t0 = kShared ? static_cast<int32_t>(blockIdx.y) * tile : 0;
+  const int32_t tn = kShared ? min(tile, g.n_bins - t0) : g.n_bins;
+  uint32_t* lo = smem;
+  uint32_t* hi = smem + tile;
+  int32_t* cnt = reinterpret_cast<int32_t*>(smem + 2 * tile);
+  const int64_t chunk = static_cast<int64_t>(kThr) * kRun;
+  const int64_t base0 = static_cast<int64_t>(blockIdx.x) * chunk;
+  int32_t s[kRun], e[kRun];
+  load_run<kRun>(starts, ends, n, base0 + threadIdx.x * kRun, vec, s, e);
+  // the tile's bins [ra, rz) that this block zeroes, scans and flushes
+  int32_t ra = 0, rz = tn;
+  if (kShared) {
+    if (threadIdx.x == 0) {
+      carry_total = 0;
+      reach_lo = INT32_MAX;
+      reach_hi = -1;
+    }
+    __syncthreads();
+    if (static_cast<int64_t>(gridDim.x) * chunk >= n) {
+      int64_t mlo = INT64_MAX, mhi = INT64_MIN;
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        const int64_t l = s[k] > g.origin ? s[k] : g.origin;
+        const int64_t h = e[k] < g.last_edge ? e[k] : g.last_edge;
+        if (h > l) {
+          mlo = l < mlo ? l : mlo;
+          mhi = h > mhi ? h : mhi;
+        }
+      }
+      if (mhi > INT64_MIN) {
+        atomicMin(&reach_lo, bin_of<kNarrow>(g, mlo));
+        atomicMax(&reach_hi, bin_of<kNarrow>(g, mhi - 1));
+      }
+      __syncthreads();
+      ra = min(max(reach_lo - t0, 0), tn);
+      rz = max(min(reach_hi + 1 - t0, tn), ra);
+    }
+    for (int32_t i = ra + threadIdx.x; i < rz; i += blockDim.x) {
+      lo[i] = 0;
+      hi[i] = 0;
+      cnt[i] = 0;
+    }
     __syncthreads();
   }
-  const int64_t last_edge = origin + bin_size * n_bins;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
-    const int64_t s = starts[i];
-    const int64_t e = ends[i];
-    const int64_t lo = s > origin ? s : origin;
-    const int64_t hi = e < last_edge ? e : last_edge;
-    if (hi <= lo) continue;
-    const u64 off = static_cast<u64>(lo - origin);
-    int64_t b = narrow ? static_cast<int64_t>(static_cast<uint32_t>(off) /
-                                              static_cast<uint32_t>(bin_size))
-                       : static_cast<int64_t>(off / static_cast<u64>(bin_size));
-    int64_t edge = origin + b * bin_size;   // the bin's lower edge, <= lo
-    int64_t from = lo;
-    while (from < hi) {
-      edge += bin_size;
-      const int64_t to = hi < edge ? hi : edge;
-      atomicAdd(&bins[b], static_cast<u64>(to - from));
-      from = to;
-      ++b;
+  uint32_t carry = 0;  // count differences before the tile
+  auto add_part = [&](int32_t b, u64 v) {
+    if (kShared) {
+      const int32_t i = b - t0;
+      const uint32_t v_lo = static_cast<uint32_t>(v);
+      const uint32_t old = atomicAdd(&lo[i], v_lo);
+      const uint32_t h = static_cast<uint32_t>(v >> 32) +
+                         (old + v_lo < old ? 1u : 0u);
+      if (h) atomicAdd(&hi[i], h);
+    } else {
+      atomicAdd(&out[b], v);
     }
-  }
-  if (shared_bins) {
-    __syncthreads();
-    for (int b = threadIdx.x; b < n_bins; b += blockDim.x) {
-      const u64 c = acc[b];
-      if (c) atomicAdd(&out[b], c);
+  };
+  auto add_count = [&](int32_t b, int32_t d) {
+    if (!kShared) {
+      atomicAdd(&counts[b], d);
+    } else if (b < t0) {
+      carry += static_cast<uint32_t>(d);
+    } else if (b - t0 < tn) {
+      atomicAdd(&cnt[b - t0], d);
     }
+  };
+  // the lane's running partial: bin rb (-1: none) holds rv; a partial in
+  // another bin hands it on with one atomic
+  int32_t rb = -1;
+  u64 rv = 0;
+  auto step = [&](int32_t b, u64 v) {
+    if (b < t0 || b - t0 >= tn) return;   // b < 0 too: t0 >= 0
+    if (b == rb) {
+      rv += v;
+      return;
+    }
+    if (rb >= 0) add_part(rb, rv);
+    rb = b;
+    rv = v;
+  };
+  for (int64_t base = base0; base < n;
+       base += static_cast<int64_t>(gridDim.x) * chunk) {
+    if (base != base0) {
+      load_run<kRun>(starts, ends, n, base + threadIdx.x * kRun, vec, s, e);
+    }
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) {
+      const Events ev = read_events<kNarrow>(g, s[k], e[k]);
+      step(ev.b0, ev.v0);
+      step(ev.b1, ev.v1);
+      if (ev.whole) {
+        add_count(ev.b0 + 1, 1);
+        add_count(ev.b1, -1);
+      }
+    }
+    // hand on the run's last sum, all lanes together: one atomic for the
+    // warp when every lane holds the same bin (sorted reads), else one a
+    // lane.  A lane's sum is at most 2 kRun reads of < 2^32 bases each.
+    const int32_t b_0 = __shfl_sync(kFull, rb, 0);
+    if (__all_sync(kFull, rb == b_0)) {
+      if (b_0 >= 0) {
+        const uint32_t low = __reduce_add_sync(
+            kFull, static_cast<uint32_t>(rv & 0xFFFFFF));
+        const uint32_t top = __reduce_add_sync(
+            kFull, static_cast<uint32_t>(rv >> 24));
+        if ((threadIdx.x & 31) == 0) {
+          add_part(b_0, low + (static_cast<u64>(top) << 24));
+        }
+      }
+    } else if (rb >= 0) {
+      add_part(rb, rv);
+    }
+    rb = -1;
+    rv = 0;
   }
+  if (!kShared) return;
+  carry = __reduce_add_sync(kFull, carry);
+  if ((threadIdx.x & 31) == 0 && carry) atomicAdd(&carry_total, carry);
+  __syncthreads();
+  // bins of the tile before ra: no count difference reaches them (a read
+  // before the tile makes ra 0), so nothing to add; after rz: none either
+  const u64 bin_size = static_cast<u64>(g.bin_size);
+  block_scan(
+      rz - ra, carry_total, [&](int32_t i) { return cnt[ra + i]; },
+      [&](int32_t i, uint32_t prefix) {
+        const u64 v = ((static_cast<u64>(hi[ra + i]) << 32) | lo[ra + i]) +
+                      bin_size * prefix;
+        if (v) atomicAdd(&out[t0 + ra + i], v);
+      },
+      warp_sums);
+}
+
+// The global route's second pass: out[b] += bin_size * (counts[0] + ... +
+// counts[b]).  Block y takes the bins [y * tile, y * tile + tile) and
+// first sums the counts before them itself.
+__global__ void __launch_bounds__(kScanThreads)
+bin_scan_kernel(const int32_t* __restrict__ counts, int32_t n_bins,
+                int32_t tile, int64_t bin_size, u64* __restrict__ out) {
+  __shared__ uint32_t warp_sums[kScanThreads / 32];
+  __shared__ uint32_t carry_total;
+  const int32_t t0 = static_cast<int32_t>(blockIdx.x) * tile;
+  const int32_t tn = min(tile, n_bins - t0);
+  if (threadIdx.x == 0) carry_total = 0;
+  __syncthreads();
+  uint32_t carry = 0;
+  for (int32_t i = threadIdx.x; i < t0; i += blockDim.x) {
+    carry += static_cast<uint32_t>(counts[i]);
+  }
+  carry = __reduce_add_sync(kFull, carry);
+  if ((threadIdx.x & 31) == 0 && carry) atomicAdd(&carry_total, carry);
+  __syncthreads();
+  const u64 bs = static_cast<u64>(bin_size);
+  block_scan(
+      tn, carry_total, [&](int32_t i) { return counts[t0 + i]; },
+      [&](int32_t i, uint32_t prefix) {
+        if (prefix) out[t0 + i] += bs * prefix;
+      },
+      warp_sums);
+}
+
+struct Plan {
+  int route;    // 0 shared, 1 global
+  int tiles;    // shared: tiles of bins (grid y)
+  int tile;     // shared: bins a tile
+  int blocks;   // grid x: chunks of the reads
+  int threads;  // a block: kWideBlock or kNarrowBlock
+};
+
+// Blocks for `chunks` chunks of reads, at most `most`, each block taking
+// the same number of chunks (a block with one chunk more than the others
+// would double the time of a short run).
+int64_t even_blocks(int64_t chunks, int64_t most) {
+  const int64_t rounds = (chunks + most - 1) / most;
+  return (chunks + rounds - 1) / rounds;
+}
+
+template <bool kShared, bool kNarrow>
+auto kernel_for(int threads) {
+  return threads == kWideBlock ? bin_overlap_kernel<kShared, kNarrow,
+                                                    kWideBlock>
+                               : bin_overlap_kernel<kShared, kNarrow,
+                                                    kNarrowBlock>;
+}
+
+// The route and grid for n reads over n_bins bins; `want` -1 lets the
+// rule choose, 0 or 1 forces a route.  Also lets the shared route's
+// kernels take all the shared memory a block may opt in to.
+Plan plan_for(int64_t n, int32_t n_bins, int want, int device) {
+  Plan p{};
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess || optin <= 0) {
+    cudaGetLastError();
+    optin = 48 * 1024;
+  }
+  const int64_t per_tile = (optin - kStaticSmem) / kBytesPerBin;
+  const int most = static_cast<int>(per_tile * kBytesPerBin);
+  for (int threads : {kWideBlock, kNarrowBlock}) {
+    cudaFuncSetAttribute(kernel_for<true, true>(threads),
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    cudaFuncSetAttribute(kernel_for<true, false>(threads),
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  }
+  p.tiles = static_cast<int>((n_bins + per_tile - 1) / per_tile);
+  p.tile = static_cast<int>((n_bins + p.tiles - 1) / p.tiles);
+  const size_t smem = static_cast<size_t>(p.tile) * kBytesPerBin;
+  p.threads = 4 * static_cast<int64_t>(smem) > most ? kWideBlock
+                                                     : kNarrowBlock;
+  const int sms = coral::sm_count(device);
+  const int64_t chunk = static_cast<int64_t>(p.threads) * kRun;
+  const int64_t chunks = std::max<int64_t>(1, (n + chunk - 1) / chunk);
+  const int64_t wave = static_cast<int64_t>(sms) *
+      coral::resident_blocks(kernel_for<true, true>(p.threads), p.threads,
+                             smem);
+  const int64_t shared_blocks =
+      even_blocks(chunks, std::max<int64_t>(1, wave / p.tiles));
+  const int64_t shared_cost = shared_blocks * n_bins + (p.tiles - 1) * n;
+  p.route = want >= 0 ? want : (shared_cost <= kGlobalPerRead * n ? 0 : 1);
+  if (p.route == 0) {
+    p.blocks = static_cast<int>(shared_blocks);
+    return p;
+  }
+  p.threads = kNarrowBlock;
+  const int64_t gchunk = static_cast<int64_t>(p.threads) * kRun;
+  const int64_t gwave = static_cast<int64_t>(sms) *
+      std::max(1, coral::resident_blocks(kernel_for<false, true>(p.threads),
+                                         p.threads, 0));
+  p.blocks = static_cast<int>(
+      even_blocks(std::max<int64_t>(1, (n + gchunk - 1) / gchunk), gwave));
+  p.tiles = 1;
+  p.tile = n_bins;
+  return p;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on the caller's stream, does not synchronise, and returns
-// cudaGetLastError() (0 when the launch was accepted).  `out` holds
-// n_bins 64-bit sums and is zeroed by the caller.
-int coral_bin_overlap(const void* starts, const void* ends, void* out,
-                      long long n, long long origin, long long bin_size,
-                      int n_bins, int device, void* stream) {
+// The plan for these sizes (see plan_for): out[0..5) = route (0 shared,
+// 1 global), tiles, bins a tile, blocks a tile, threads a block.  The
+// caller keeps it and hands it to coral_bin_overlap, so that a launch asks
+// the driver nothing.  Returns cudaGetLastError().
+int coral_bin_overlap_plan(long long n, int n_bins, int want, int device,
+                           int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem =
-      n_bins <= kSharedBins ? static_cast<size_t>(n_bins) * sizeof(u64) : 0;
-  const int narrow = bin_size < (1LL << 32) / n_bins;
-  bin_overlap_kernel<<<grid_for(n, device, 8), kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
-      n, origin, bin_size, n_bins, narrow, static_cast<u64*>(out));
+  const Plan p = plan_for(n, n_bins, want, device);
+  out[0] = p.route;
+  out[1] = p.tiles;
+  out[2] = p.tile;
+  out[3] = p.blocks;
+  out[4] = p.threads;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches on the caller's stream, does not synchronise, and returns
+// cudaGetLastError() (0 when every launch was accepted).  `out` holds
+// n_bins 64-bit sums and is zeroed by the caller; route, tiles, tile,
+// blocks and threads are coral_bin_overlap_plan's for this device, n and
+// n_bins; on the global route `counts` is a zeroed int32 array of n_bins,
+// else it may be null.
+int coral_bin_overlap(const void* starts, const void* ends, void* out,
+                      void* counts, long long n, long long origin,
+                      long long bin_size, int n_bins, int route, int tiles,
+                      int tile, int blocks, int threads, int device,
+                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n >= (1LL << 32) || (route == 1 && counts == nullptr) ||
+      (threads != kWideBlock && threads != kNarrowBlock)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Bins g{origin, bin_size, origin + bin_size * n_bins, n_bins, 0, 0, 0};
+  const bool narrow = bin_size < (1LL << 32) / n_bins;
+  if (narrow) {
+    int l = 0;
+    while ((1LL << l) < bin_size) ++l;
+    g.magic = static_cast<uint32_t>(
+        (((1ULL << l) - static_cast<u64>(bin_size)) << 32) /
+            static_cast<u64>(bin_size) + 1);
+    g.sh1 = l < 1 ? l : 1;
+    g.sh2 = l > 1 ? l - 1 : 0;
+  }
+  const int vec = coral::aligned(starts, 16) && coral::aligned(ends, 16);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* s = static_cast<const int32_t*>(starts);
+  const int32_t* e = static_cast<const int32_t*>(ends);
+  u64* o = static_cast<u64*>(out);
+  if (route == 0) {
+    const size_t smem = static_cast<size_t>(tile) * kBytesPerBin;
+    const auto kernel = narrow ? kernel_for<true, true>(threads)
+                               : kernel_for<true, false>(threads);
+    kernel<<<dim3(blocks, tiles), threads, smem, st>>>(s, e, n, g, tile, vec,
+                                                       o, nullptr);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int32_t* c = static_cast<int32_t*>(counts);
+  const auto kernel = narrow ? kernel_for<false, true>(threads)
+                             : kernel_for<false, false>(threads);
+  kernel<<<blocks, threads, 0, st>>>(s, e, n, g, n_bins, vec, o, c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int scan_blocks =
+      std::min(kScanBlocks, (n_bins + kScanTile - 1) / kScanTile);
+  const int scan_tile = (n_bins + scan_blocks - 1) / scan_blocks;
+  bin_scan_kernel<<<scan_blocks, kScanThreads, 0, st>>>(c, n_bins, scan_tile,
+                                                         bin_size, o);
   return static_cast<int>(cudaGetLastError());
 }
 

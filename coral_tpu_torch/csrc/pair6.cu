@@ -27,6 +27,23 @@
 // intervals (8 KB, one 16-byte word per interval, read as a broadcast)
 // at a time, each thread holding one pair across the tiles; the block
 // leaves the tile loop as soon as all of its pairs are done.
+//
+// K4 adds a histogram of the hits by interval, and what bounded it was
+// where the counts went.  PR 3's K4 counted into shared memory up to 8190
+// intervals (K2's limit from its 14-bit packed meta, not a limit of shared
+// memory) and above it straight into the output: on the WGS sample, whose
+// hits fall on 10 intervals, every warp's atomics went to 10 addresses in
+// device memory, and K4 took 2.1x K3's time (0.0536 against 0.0254 ms on
+// an H100 80GB HBM3 at 700 W, chip_smoke.py, PR 3).  Now a block keeps a
+// direct-mapped cache of 2048 bins in shared memory above 8190 intervals
+// (16 KB of tags and counts: hot bins stay on the SM at any number of
+// intervals, and with the 8 KB tile a block takes 24 KB, so the SM still
+// holds K3's 8 blocks).  A slot is claimed by the first bin that reaches
+// it and kept; a bin whose slot holds another bin goes to device memory
+// as before, so many hot bins on one slot cost what PR 3's kernel cost.
+
+#include <algorithm>
+#include <cstdlib>
 
 #include "pair_common.cuh"
 
@@ -37,9 +54,12 @@ using coral::kThreads;
 using coral::wrap_sub;
 
 constexpr int kTile = 512;
-// a block counts into shared memory up to this many bins (K2's limit);
-// above it, straight into the output with global atomics
+// K4: a block holds every bin in shared memory up to this many intervals
+// (32 KB), and a cache of kCacheSlots bins (16 KB) above it
 constexpr int kSharedBins = 8190;
+constexpr int kCacheSlots = 2048;
+// K3's grid: 8 resident blocks of 256 threads an SM, a whole SM's threads
+constexpr int kBlocksPerSm = 8;
 
 struct Table {
   const int32_t* __restrict__ chrom;
@@ -142,25 +162,58 @@ pair6_hitmask_kernel(Table tb, Cols c, uint8_t* __restrict__ hit,
   }
 }
 
+// One histogram step of K4's warp: every lane brings a bin (-1: none).
+// When every lane that has a bin has the same one, as neighbouring pairs
+// mostly do, the first of them adds their number with two ballots and a
+// shuffle; otherwise coral::warp_count_with groups the lanes by bin
+// (__match_any_sync, which costs more).  All 32 lanes call it together.
+template <typename Add>
+__device__ __forceinline__ void count_step(int32_t bin, uint32_t bins,
+                                           Add add) {
+  const int32_t b = static_cast<uint32_t>(bin) < bins ? bin : -1;
+  const unsigned has = __ballot_sync(0xFFFFFFFFu, b >= 0);
+  if (has == 0) return;
+  const int first = __ffs(has) - 1;
+  const int32_t b_first = __shfl_sync(0xFFFFFFFFu, b, first);
+  if (__ballot_sync(0xFFFFFFFFu, b == b_first) == has) {
+    if ((threadIdx.x & 31) == first) add(b_first, __popc(has));
+    return;
+  }
+  coral::warp_count_with(b, bins, add);
+}
+
 // K4: K3 fused with the per-interval support histogram of
 // hit & (io_i == k).  Replaces _pair_hist_kernel
 // (coral_tpu/ops/pallas_kernels.py:659).  The TPU kernel adds each grid
 // step's counts into one VMEM block in grid order; CUDA blocks run in no
-// order, so a block counts into shared memory while the bins fit there
-// (K2's scheme) and otherwise straight into the output, in both cases one
-// atomic per distinct bin of a warp.  Integer adds commute, so the counts
-// are exact whatever the order.  `out` is zeroed by the caller.
+// order, so each block counts on the SM and adds its counts into `out`
+// once at the end, one atomic per distinct bin of a warp on the way in.
+// Up to kSharedBins intervals a block holds every bin in shared memory.
+// Above that it holds a direct-mapped cache of kCacheSlots bins: slot
+// bin % kCacheSlots, claimed by the first bin that reaches it (atomicCAS
+// on its tag) and kept for the rest of the block; a bin whose slot holds
+// another bin is added straight into `out`.  Integer adds commute, so the
+// counts are exact whatever the order.  `out` is zeroed by the caller.
 __global__ void __launch_bounds__(kThreads)
 pair6_support_kernel(Table tb, Cols c, int64_t n, int32_t cutoff,
                      int32_t min_mapq, float gap, int32_t* __restrict__ out) {
   __shared__ int4 tile[kTile];
   extern __shared__ int32_t hist[];
-  const bool shared_bins = tb.n <= kSharedBins;
-  int32_t* bins = shared_bins ? hist : out;
-  if (shared_bins) {
-    for (int32_t b = threadIdx.x; b < tb.n; b += blockDim.x) hist[b] = 0;
-    __syncthreads();
+  // exact: hist[k] counts bin k; cached: tags, then counts, per slot
+  const bool exact = tb.n <= kSharedBins;
+  const int32_t slots = exact ? tb.n : kCacheSlots;
+  int32_t* tag = hist;
+  int32_t* cnt = hist + kCacheSlots;
+  for (int32_t b = threadIdx.x; b < slots; b += blockDim.x) {
+    if (exact) {
+      hist[b] = 0;
+    } else {
+      tag[b] = -1;
+      cnt[b] = 0;
+    }
   }
+  __syncthreads();
+  const uint32_t bins = static_cast<uint32_t>(tb.n);
   int32_t staged = -1;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads; base < n;
@@ -168,14 +221,29 @@ pair6_support_kernel(Table tb, Cols c, int64_t n, int32_t cutoff,
     int32_t io_i;
     const bool h = pair6_decide(tb, c, tile, staged, base, n, cutoff,
                                 min_mapq, gap, &io_i);
-    // all 32 lanes are here together: pair6_decide ends on a barrier
-    coral::warp_count(bins, h ? io_i : -1, static_cast<uint32_t>(tb.n));
+    // all 32 lanes are here together: pair6_decide ends on a barrier, and
+    // `exact` is the same in the whole block
+    if (exact) {
+      count_step(h ? io_i : -1, bins,
+                 [&](int32_t b, int32_t k) { atomicAdd(&hist[b], k); });
+    } else {
+      count_step(h ? io_i : -1, bins, [&](int32_t b, int32_t k) {
+        const int32_t s = b & (kCacheSlots - 1);
+        int32_t t = static_cast<volatile int32_t*>(tag)[s];
+        if (t < 0) {
+          t = atomicCAS(&tag[s], -1, b);
+          if (t < 0) t = b;
+        }
+        atomicAdd(t == b ? &cnt[s] : &out[b], k);
+      });
+    }
   }
-  if (shared_bins) {
-    __syncthreads();
-    for (int32_t b = threadIdx.x; b < tb.n; b += blockDim.x) {
-      const int32_t cnt = hist[b];
-      if (cnt) atomicAdd(&out[b], cnt);
+  __syncthreads();
+  for (int32_t b = threadIdx.x; b < slots; b += blockDim.x) {
+    if (exact) {
+      if (hist[b]) atomicAdd(&out[b], hist[b]);
+    } else if (cnt[b]) {
+      atomicAdd(&out[tag[b]], cnt[b]);
     }
   }
 }
@@ -211,7 +279,7 @@ int coral_pair6_hitmask(const void* ic, const void* is, const void* ie,
                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair6_hitmask_kernel<<<grid_for(n, device, 8), kThreads, 0,
+  pair6_hitmask_kernel<<<grid_for(n, device, kBlocksPerSm), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       table_of(ic, is, ie, n_int), cols_of(qgap, r1_i, r2_i, r1_j, r2_j, meta),
       static_cast<uint8_t*>(hit), static_cast<int32_t*>(io), n, cutoff,
@@ -227,8 +295,16 @@ int coral_pair6_support(const void* ic, const void* is, const void* ie,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem =
-      n_int <= kSharedBins ? static_cast<size_t>(n_int) * sizeof(int32_t) : 0;
-  pair6_support_kernel<<<grid_for(n, device, 4), kThreads, smem,
+      static_cast<size_t>(n_int <= kSharedBins ? n_int : 2 * kCacheSlots) *
+      sizeof(int32_t);
+  // K3's grid where the SM holds that many blocks (it does at every n_int:
+  // at most 40 KB a block)
+  const char* cap_env = getenv("CORAL_K4_BLOCKS_PER_SM");
+  const int cap = cap_env ? atoi(cap_env) : kBlocksPerSm;
+  const int per_sm = std::min(
+      cap, coral::resident_blocks(pair6_support_kernel, kThreads, smem));
+  pair6_support_kernel<<<grid_for(n, device, std::max(per_sm, 1)), kThreads,
+                         smem,
                          static_cast<cudaStream_t>(stream)>>>(
       table_of(ic, is, ie, n_int), cols_of(qgap, r1_i, r2_i, r1_j, r2_j, meta),
       n, cutoff, min_mapq, gap, static_cast<int32_t*>(out));

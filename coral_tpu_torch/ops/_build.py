@@ -82,8 +82,11 @@ def load() -> ctypes.CDLL:
     lib.coral_pair6_support.restype = i
     lib.coral_stream_control.argtypes = [p, p, p, p, ll, i, p]
     lib.coral_stream_control.restype = i
-    lib.coral_bin_overlap.argtypes = [p, p, p, ll, ll, ll, i, i, p]
+    lib.coral_bin_overlap.argtypes = [p, p, p, p, ll, ll, ll] + [i] * 7 + [p]
     lib.coral_bin_overlap.restype = i
+    lib.coral_bin_overlap_plan.argtypes = [ll, i, i, i,
+                                           ctypes.POINTER(ctypes.c_int)]
+    lib.coral_bin_overlap_plan.restype = i
     lib.coral_match_matrix.argtypes = [p, p, p, i, i, i, p]
     lib.coral_match_matrix.restype = i
     lib.coral_cuda_error_string.argtypes = [i]

@@ -13,12 +13,18 @@ layout (:data:`.scoring.PACKED2_COL_ORDER`); all five are bound by device
 memory bandwidth.  K3 and K4 stream 24 B per pair of the 6-column layout
 (:data:`.scoring.PACKED_COL_ORDER`) and scan the interval table per pair:
 bound by bandwidth at a handful of intervals and by integer operations at
-thousands.  K8 (aligned bases per genome bin) streams 8 B per read and
-walks the bins a read touches; K9 (the match matrix of a clustering
-group) writes one byte per cell for about nine integer operations.
+thousands; K4 counts its hits on the SM at any number of intervals (every
+bin in shared memory up to 8190, a cache of 2048 bins above).  K8
+(aligned bases per genome bin) streams 8 B per read and makes at most four
+updates a read, merged per lane and per warp, in shared-memory tiles of
+the bins or in device memory (:func:`bin_overlap_plan`); K9 (the match
+matrix of a clustering group) writes one byte per cell for about nine
+integer operations.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -192,7 +198,11 @@ def pair6_hitmask(int_chrom, int_start, int_end, qgap, r1_i, r2_i, r1_j,
 def pair6_support(int_chrom, int_start, int_end, qgap, r1_i, r2_i, r1_j,
                   r2_j, meta, cutoff: int, min_mapq: int, gap_: float):
     """K4 (replaces ``_pair_hist_kernel``): K3 fused with the per-interval
-    support histogram of ``hit & (io_i == k)``, int32 (n_int,)."""
+    support histogram of ``hit & (io_i == k)``, int32 (n_int,).  A block
+    counts on the SM: every interval's bin in shared memory up to 8190
+    intervals, above that a direct-mapped cache of 2048 bins (slot
+    ``k % 2048``, kept by the first interval that reaches it; the others of
+    that slot go to device memory).  The counts are exact either way."""
     packed6 = (qgap, r1_i, r2_i, r1_j, r2_j, meta)
     n_int, n = _check_pair6(int_chrom, int_start, int_end, packed6)
     if qgap.device.type == "cpu":
@@ -294,30 +304,86 @@ def _check_bins(origin: int, bin_size: int, n_bins: int) -> None:
 
 
 def bin_overlap_torch(starts, ends, origin: int, bin_size: int, n_bins: int):
-    """Plain version of K8: int64 (n_bins,).  The kernel's walk, a bin at a
-    time over the reads that still have bases left."""
+    """Plain version of K8: int64 (n_bins,).  The kernel's decomposition in
+    tensor ops: a read clipped to ``[lo, hi)`` adds its overlaps with its
+    first and last bin (``index_add_``), and the whole bins between them
+    enter a difference array of counts whose ``cumsum`` times ``bin_size``
+    is added at the end."""
     _check_bins(origin, bin_size, n_bins)
-    out = torch.zeros(n_bins, dtype=torch.int64, device=starts.device)
     last_edge = origin + bin_size * n_bins
     lo = starts.to(torch.int64).clamp(min=origin)
     hi = ends.to(torch.int64).clamp(max=last_edge)
     live = hi > lo
     lo, hi = lo[live], hi[live]
-    b = torch.div(lo - origin, bin_size, rounding_mode="floor")
-    while lo.numel():
-        to = torch.minimum(hi, origin + (b + 1) * bin_size)
-        out.index_add_(0, b, to - lo)
-        live = to < hi
-        lo, hi, b = to[live], hi[live], b[live] + 1
-    return out
+    b0 = torch.div(lo - origin, bin_size, rounding_mode="floor")
+    b1 = torch.div(hi - 1 - origin, bin_size, rounding_mode="floor")
+    one = b0 == b1
+    out = torch.zeros(n_bins, dtype=torch.int64, device=starts.device)
+    out.index_add_(0, b0, torch.where(one, hi, origin + (b0 + 1) * bin_size)
+                   - lo)
+    two = ~one
+    out.index_add_(0, b1[two], hi[two] - (origin + b1[two] * bin_size))
+    whole = b1 > b0 + 1
+    counts = torch.zeros(n_bins, dtype=torch.int64, device=starts.device)
+    ones = torch.ones(int(whole.sum()), dtype=torch.int64,
+                      device=starts.device)
+    counts.index_add_(0, b0[whole] + 1, ones)
+    counts.index_add_(0, b1[whole], -ones)
+    return out + bin_size * counts.cumsum(0)
 
 
-def bin_overlap(starts, ends, origin: int, bin_size: int, n_bins: int):
+# the routes of K8 (csrc/bins.cu, plan_for); "auto" lets the kernel's rule
+# choose
+_BIN_ROUTES = ("auto", "shared", "global")
+
+
+def _bin_route(route: str) -> int:
+    if route not in _BIN_ROUTES:
+        raise ValueError(f"route={route!r}: one of {_BIN_ROUTES}")
+    return _BIN_ROUTES.index(route) - 1
+
+
+@functools.lru_cache(maxsize=256)
+def _bin_plan(device: int, n: int, n_bins: int, want: int):
+    from . import _build
+
+    lib = _build.load()
+    plan = (ctypes.c_int * 5)()
+    rc = lib.coral_bin_overlap_plan(n, n_bins, want, device, plan)
+    _build.check(lib, rc, "bin_overlap plan")
+    return tuple(plan)
+
+
+def bin_overlap_plan(n: int, n_bins: int, device, route: str = "auto"):
+    """How K8 runs ``n`` reads over ``n_bins`` bins on the CUDA ``device``:
+    ``{"route": "shared" or "global", "tiles", "tile", "blocks",
+    "threads"}`` (tiles of ``tile`` bins, each taken by ``blocks`` blocks of
+    ``threads``, on the shared route; on the global route one tile of every
+    bin).  ``route`` other than "auto"
+    forces a route, as it does for :func:`bin_overlap`.  Asked of the
+    driver once per device and sizes, then kept."""
+    route_, tiles, tile, blocks, threads = _bin_plan(
+        torch.device(device).index or 0, int(n), int(n_bins),
+        _bin_route(route))
+    return {"route": ("shared", "global")[route_], "tiles": tiles,
+            "tile": tile, "blocks": blocks, "threads": threads}
+
+
+def bin_overlap(starts, ends, origin: int, bin_size: int, n_bins: int, *,
+                route: str = "auto"):
     """K8 (replaces ``_bin_kernel``): aligned bases per genome bin.  For
     int32 reads ``[starts, ends)`` and the ``n_bins`` contiguous bins of
     ``bin_size`` from ``origin``, ``out[b] = sum(max(min(e, hi_b) -
     max(s, lo_b), 0))``, int64 (n_bins,).  Reads with ``e <= s`` add
     nothing; reads that reach outside the binned range are clipped.
+
+    A read costs at most four updates however many bins it spans: its
+    overlaps with its first and last bin, and a difference array of counts
+    for the whole bins between them, scanned at the end.  The kernel keeps
+    the sums in shared memory, in tiles of the bins, or in device memory
+    with a second scan kernel, by the rule of ``csrc/bins.cu``
+    (:func:`bin_overlap_plan`); ``route`` "shared" or "global" forces one,
+    for tests and measurements.  One call counts one launch.
 
     Edges and sums are int64.  The TPU kernel casts the edges to int32 and
     sums in int32, so the two agree wherever neither of those wraps; this
@@ -326,14 +392,19 @@ def bin_overlap(starts, ends, origin: int, bin_size: int, n_bins: int):
     n = _check_cols("starts, ends", starts, ends)
     origin, bin_size, n_bins = int(origin), int(bin_size), int(n_bins)
     _check_bins(origin, bin_size, n_bins)
+    want = _bin_route(route)
     if starts.device.type == "cpu":
         return bin_overlap_torch(starts, ends, origin, bin_size, n_bins)
     out = torch.zeros(n_bins, dtype=torch.int64, device=starts.device)
     if n == 0:
         return out
+    plan = _bin_plan(starts.device.index or 0, n, n_bins, want)
+    counts = None if plan[0] == 0 else \
+        torch.zeros(n_bins, dtype=torch.int32, device=starts.device)
     _launch("bin_overlap", "coral_bin_overlap", starts,
-            starts.data_ptr(), ends.data_ptr(), out.data_ptr(), n, origin,
-            bin_size, n_bins)
+            starts.data_ptr(), ends.data_ptr(), out.data_ptr(),
+            None if counts is None else counts.data_ptr(), n, origin,
+            bin_size, n_bins, *plan)
     return out
 
 

@@ -65,6 +65,60 @@ def test_bin_overlap_plain_equals_pallas(origin, bin_size, n_bins):
     assert got.sum() > 0
 
 
+def _spans_case(kind):
+    """Reads for the decomposition of K8's plain version: (starts, ends,
+    origin, bin_size, n_bins)."""
+    rng = np.random.default_rng(11)
+    if kind == "three_or_more_bins":
+        s = rng.integers(0, 120_000, 2000)
+        return s, s + rng.integers(2_000, 40_000, 2000), 5_000, 1_000, 120
+    if kind == "on_edges":
+        # starts and ends exactly on edges, one base either side of them,
+        # and reads of whole bins only
+        k = rng.integers(0, 60, 2000)
+        s = 1_000 + 500 * k + rng.choice([-1, 0, 0, 1], 2000)
+        e = 1_000 + 500 * (k + rng.integers(0, 6, 2000)) \
+            + rng.choice([-1, 0, 0, 1], 2000)
+        return s, e, 1_000, 500, 64
+    if kind == "one_base_bins":
+        s = rng.integers(-20, 160, 2000)
+        return s, s + rng.integers(0, 40, 2000), 0, 1, 150
+    s = np.sort(rng.integers(0, 400_000, 3000))     # sorted by start
+    return s, s + rng.integers(100, 25_000, 3000), 0, 7_000, 60
+
+
+@pytest.mark.parametrize("kind", ["three_or_more_bins", "on_edges",
+                                  "one_base_bins", "sorted"])
+def test_bin_overlap_plain_decomposition(kind):
+    """The plain version's partials + difference array of counts + cumsum
+    against the Pallas kernel (interpret mode) and a bin-at-a-time numpy
+    sum, where a read spans three or more bins, starts or ends on an edge,
+    where bins are one base, and over reads sorted by start."""
+    from coral_tpu.ops.pallas_kernels import bin_coverage_pallas
+
+    starts, ends, origin, bin_size, n_bins = _spans_case(kind)
+    starts, ends = starts.astype(np.int32), ends.astype(np.int32)
+    lo = np.maximum(starts.astype(np.int64), origin)
+    hi = np.minimum(ends.astype(np.int64), origin + bin_size * n_bins)
+    live = hi > lo
+    first = (lo[live] - origin) // bin_size
+    last = (hi[live] - 1 - origin) // bin_size
+    if kind == "three_or_more_bins":
+        assert (last - first >= 2).mean() > 0.5
+    if kind == "on_edges":
+        assert ((starts - origin) % bin_size == 0).sum() > 500
+        assert ((ends - origin) % bin_size == 0).sum() > 500
+    got = kernels.bin_overlap(torch.from_numpy(starts),
+                              torch.from_numpy(ends), origin, bin_size,
+                              n_bins)
+    want = bin_coverage_pallas(starts, ends, origin, bin_size, n_bins,
+                               interpret=True)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    np.testing.assert_array_equal(
+        got.numpy(), _bins_numpy(starts, ends, origin, bin_size, n_bins))
+    assert got.sum() > 0
+
+
 @pytest.mark.parametrize("origin,bin_size,n_bins", BINNINGS)
 def test_coverage_index_equals_jax(origin, bin_size, n_bins):
     from coral_tpu.ops.coverage import CoverageIndex as JaxIndex
@@ -184,3 +238,48 @@ def test_cuda_bin_overlap_equals_plain(cuda_device, origin, bin_size, n_bins):
         got.cpu().numpy(),
         bin_coverage(starts, ends, origin, bin_size, n_bins, engine="cuda",
                      device=cuda_device))
+
+
+def test_bin_overlap_route_names():
+    """``route`` names a route of the kernel or "auto"; on the CPU every
+    route is the plain version."""
+    starts, ends = _reads(n=500)
+    s = torch.from_numpy(starts.astype(np.int32))
+    e = torch.from_numpy(ends.astype(np.int32))
+    want = kernels.bin_overlap_torch(s, e, 0, 10_000, 100)
+    for route in ("auto", "shared", "global"):
+        assert torch.equal(kernels.bin_overlap(s, e, 0, 10_000, 100,
+                                               route=route), want)
+    with pytest.raises(ValueError, match="route"):
+        kernels.bin_overlap(s, e, 0, 10_000, 100, route="tiled")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("route", ["auto", "shared", "global"])
+def test_cuda_bin_overlap_route_switches(cuda_device, route, order):
+    """K8 on each route at n_bins either side of each switch of its plan on
+    this card (the bins leave one shared-memory tile; the rule turns to the
+    global route), and at one bin and 2^20 bins, over random reads and
+    reads sorted by start (where a warp's lanes share a bin)."""
+    from chip_smoke import bin_switches
+
+    starts, ends = _reads(n=200_003, seed=9, span=3_000_000)
+    if order == "sorted":
+        idx = np.argsort(starts, kind="stable")
+        starts, ends = starts[idx], ends[idx]
+    s = torch.from_numpy(starts.astype(np.int32)).to(cuda_device)
+    e = torch.from_numpy(ends.astype(np.int32)).to(cuda_device)
+    switches = bin_switches(kernels, len(starts))
+    assert len(switches) >= 2
+    for n_bins in (1, *switches, 1 << 20):
+        bin_size = max(1, 3_100_000 // n_bins)
+        plan = kernels.bin_overlap_plan(len(starts), n_bins, cuda_device,
+                                        route)
+        assert route == "auto" or plan["route"] == route
+        before = kernels.LAUNCHES["bin_overlap"]
+        got = kernels.bin_overlap(s, e, 0, bin_size, n_bins, route=route)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["bin_overlap"] == before + 1
+        want = kernels.bin_overlap_torch(s, e, 0, bin_size, n_bins)
+        assert torch.equal(got, want), (n_bins, plan)

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import dense_case, dense_case6
+from chip_smoke import HOT_WINDOWS, dense_case, dense_case6
 from coral_tpu_torch.ops import kernels
 from coral_tpu_torch.ops.layout import LANES
 from coral_tpu_torch.ops.scoring import (pair_predicate_packed_np,
@@ -63,6 +63,22 @@ def test_case6_has_every_row_kind():
     covered_twice = (io == 0) & (r1_i >= 400_000) & (ci == 0)
     assert covered_twice.any()
     assert (io == -1).any() and ((io >= 0) & ~hit).any()
+
+
+def test_case6_hot_bins_collide():
+    """The hot-bin case of K4 above 8190 intervals: the hits fall on at
+    most 16 intervals, several of which share a slot of the kernel's
+    2048-slot cache, and the plain version counts them as numpy does."""
+    ints, packed = dense_case6(N, 8200, seed=19, hot=HOT_WINDOWS)
+    hit, io = pair_predicate_packed_np(*packed, *ints, CUTOFF, MIN_MAPQ,
+                                       GAP)
+    bins = np.unique(io[hit])
+    assert 10 <= len(bins) <= 16
+    slots, per_slot = np.unique(bins % 2048, return_counts=True)
+    assert (per_slot >= 3).sum() >= 3
+    sup = kernels.pair6_support(*_cpu(ints), *_cpu(packed), **KW)
+    np.testing.assert_array_equal(
+        sup.numpy(), np.bincount(io[hit], minlength=8200))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -215,6 +231,24 @@ def test_cuda_pair6_kernels_equal_plain(cuda_device, n_int):
     assert torch.equal(hit, want_hit) and torch.equal(io, want_io)
     assert torch.equal(sup, kernels.pair6_support_torch(*args, **KW))
     assert int(sup.sum()) == int(hit.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_int", [8193, 8200, 20_000])
+def test_cuda_pair6_support_cache_collisions(cuda_device, n_int):
+    """K4 above 8190 intervals with every hit on a few intervals whose
+    cache slots collide (bin % 2048): the slot's first bin counts on the
+    SM, the others fall through to global atomics, and the counts are
+    exact."""
+    ints, packed = dense_case6(N * 40 + 3, n_int, seed=19, hot=HOT_WINDOWS)
+    st = state_from_numpy(*ints, packed, device=cuda_device)
+    args = (st.int_chrom, st.int_start, st.int_end, *st.packed)
+    sup = kernels.pair6_support(*args, **KW)
+    hit, io = kernels.pair6_hitmask(*args, **KW)
+    torch.cuda.synchronize()
+    assert torch.equal(sup, kernels.pair6_support_torch(*args, **KW))
+    assert int(sup.sum()) == int(hit.sum()) > 0
+    assert int((sup > 0).sum()) <= 16
 
 
 @pytest.mark.cuda
