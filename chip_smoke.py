@@ -142,13 +142,18 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int = 30, warmup: int = 3, clean: bool = False) -> float:
     """Median CUDA-event time of one call, in ms, with the 50 MB L2 cache
     flushed before each call (the main path finds its columns cold: they
-    have just been copied in)."""
+    have just been copied in).  The flush writes 256 MB, so the call finds
+    L2 full of dirty lines and pays for writing back those it evicts; with
+    ``clean`` the flush reads the 256 MB instead, and the call finds clean
+    lines."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    flush.zero_()
+    sink = torch.empty((), dtype=torch.int64, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -156,7 +161,10 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        flush.zero_()
+        if clean:
+            torch.sum(flush, out=sink)
+        else:
+            flush.zero_()
         a.record()
         fn()
         b.record()
@@ -851,10 +859,11 @@ def study_bin_routes(kernels, case, starts, ends, bin_size, n_bins,
                 f"K8 on the {route} route != plain ({case}, {n_bins} bins)")
         ms[route] = cuda_ms(lambda: kernels.bin_overlap(*args, route=route))
     auto = kernels.bin_overlap_plan(len(starts), n_bins, "cuda")
+    clean = cuda_ms(lambda: kernels.bin_overlap(*args), clean=True)
     log(f"[{tag}] K8 routes, {case}, {len(starts)} reads, {n_bins} bins: "
         f"ms shared {ms['shared']:.4f} global {ms['global']:.4f}; the rule "
-        f"takes {auto}; device us a call (profiler): "
-        f"{device_us(lambda: kernels.bin_overlap(*args))}")
+        f"takes {auto}, ms {clean:.4f} after a clean flush; device us a "
+        f"call (profiler): {device_us(lambda: kernels.bin_overlap(*args))}")
 
 
 def check_match(kernels, case, p1, p2, cutoff, report, tag="3 kernels"):
