@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (``coral_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py              # every phase, the result lines
-    python3 chip_smoke.py --kernels    # phases 1-3 only, no result lines
+    python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
@@ -19,9 +18,8 @@ exits non-zero:
    K4 ÷ K3), once with every hit on 14 intervals whose slots in K4's bin
    cache collide, K8 at 2^21 reads over 256 and over 65,536 bins, at
    n_bins either side of each switch of its plan on this card, and over
-   the reads sorted by start (also against the prefix-sum histogram), with
-   K8 forced onto each of its routes at several bin counts, K9 at 2,048,
-   1,001 and 4,096 positions;
+   the reads sorted by start (also against the prefix-sum histogram), the
+   floor of one timed call, K9 at 2,048, 1,001 and 4,096 positions;
 4. the main paths at WGS scale, on the junction-heavy 10-chromosome
    sample (5,179,920 records, 1.5 M pairs):
    a. reconstruct with the ``cuda`` engine (K1) and the fused batch
@@ -37,8 +35,7 @@ exits non-zero:
       engines and K5's hit mask against K1's of 4a;
    d. coverage: the sample's read spans, chromosome by chromosome, through
       ``bin_coverage(engine="cuda")`` (K8) against
-      ``CoverageIndex.bin_histogram`` and, on one chromosome, numpy (and
-      K8 forced onto each route there);
+      ``CoverageIndex.bin_histogram`` and, on one chromosome, numpy;
    e. clustering: ``cluster_breakpoints(engine="cuda")`` (K9) against
       ``engine="host"`` on the breakpoint rows of the mixed sample and on
       a seeded list with groups of 1,000 to 4,096 members and one past
@@ -97,6 +94,7 @@ OPS_PER_INTERVAL = 10     # two sides x (three compares + two ands)
 OPS_PER_PAIR_V2 = 30      # meta2 decode, MAPQ gate, reference jump, decision
 OPS_PER_READ = 12         # clip to the binned range, first bin (csrc/bins.cu)
 OPS_PER_TOUCHED_BIN = 10  # edge, min, difference, atomic, step
+OPS_PER_READ_RECOUNTED = 30  # clip, two bins, two partials, merge, counts
 OPS_PER_CELL = 9          # two x (min, max, subtract, compare) + and
 N_READS = 1 << 21
 READ_SPAN = 200_000_000
@@ -142,18 +140,13 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 30, warmup: int = 3, clean: bool = False) -> float:
+def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     """Median CUDA-event time of one call, in ms, with the 50 MB L2 cache
     flushed before each call (the main path finds its columns cold: they
-    have just been copied in).  The flush writes 256 MB, so the call finds
-    L2 full of dirty lines and pays for writing back those it evicts; with
-    ``clean`` the flush reads the 256 MB instead, and the call finds clean
-    lines."""
+    have just been copied in)."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    flush.zero_()
-    sink = torch.empty((), dtype=torch.int64, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -161,10 +154,7 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3, clean: bool = False) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        if clean:
-            torch.sum(flush, out=sink)
-        else:
-            flush.zero_()
+        flush.zero_()
         a.record()
         fn()
         b.record()
@@ -200,6 +190,13 @@ def bound_bins(starts, ends, origin: int, bin_size: int, n_bins: int):
     return bound_ms(8 * len(starts) + 8 * n_bins,
                     OPS_PER_READ * len(starts)
                     + OPS_PER_TOUCHED_BIN * touched)
+
+
+def bound_bins_recounted(n: int, n_bins: int):
+    """K8's bound counted from its design (csrc/bins.cu): 8 B a read and
+    the sums written once, and a fixed number of operations a read however
+    many bins it spans (the clip, two bins, two partials, the merge)."""
+    return bound_ms(8 * n + 8 * n_bins, OPS_PER_READ_RECOUNTED * n)
 
 
 def bound_match(n: int):
@@ -760,10 +757,9 @@ def check_v2(kernels, case, packed, n_int, report, tag="3 kernels"):
 
 
 def check_bins(kernels, case, starts, ends, origin, bin_size, n_bins, report,
-               tag="3 kernels", route="auto"):
-    """K8 (on ``route``) against its plain version and the prefix-sum
-    histogram on one set of reads; fills ``report`` and returns the
-    histogram (numpy)."""
+               tag="3 kernels"):
+    """K8 against its plain version and the prefix-sum histogram on one
+    set of reads; fills ``report`` and returns the histogram (numpy)."""
     import torch
 
     from coral_tpu_torch.ops.coverage import CoverageIndex
@@ -771,99 +767,45 @@ def check_bins(kernels, case, starts, ends, origin, bin_size, n_bins, report,
     s = torch.from_numpy(starts).cuda()
     e = torch.from_numpy(ends).cuda()
     args = (s, e, origin, bin_size, n_bins)
-    got = kernels.bin_overlap(*args, route=route)
+    got = kernels.bin_overlap(*args)
     want = kernels.bin_overlap_torch(*args)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
-    require(torch.equal(got, want), f"K8 != plain ({case}, {route})")
+    require(torch.equal(got, want), f"K8 != plain ({case})")
     hist = got.cpu().numpy()
     index = CoverageIndex(starts, ends, device="cuda")
     require(np.array_equal(hist, index.bin_histogram(origin, bin_size,
                                                      n_bins)),
-            f"K8 != CoverageIndex.bin_histogram ({case}, {route})")
-    plan = kernels.bin_overlap_plan(len(starts), n_bins, "cuda", route)
+            f"K8 != CoverageIndex.bin_histogram ({case})")
+    plan = kernels.bin_overlap_plan(len(starts), n_bins, "cuda")
     what = f"{case}, {len(starts)} reads, {n_bins} bins of {bin_size}"
     rep = {"bin_overlap": _row(
-        f"{what}, {plan['route']} route", err,
-        lambda: kernels.bin_overlap(*args, route=route),
+        what, err, lambda: kernels.bin_overlap(*args),
         lambda: kernels.bin_overlap_torch(*args),
         bound_bins(starts, ends, origin, bin_size, n_bins), plain_reps=5)}
     report["bin_overlap"].append(rep["bin_overlap"])
-    _log_rows(tag, f"bins {what}, route {route} -> {plan}: "
+    recount, by = bound_bins_recounted(len(starts), n_bins)
+    _log_rows(tag, f"bins {what}, plan {plan}: "
               f"bases={int(hist.sum())} K8==plain==prefix sums", rep)
+    log(f"[{tag}] bins {case}: bound recounted for at most four updates a "
+        f"read {recount:.4f} ms ({by}); K8 / bound "
+        f"{rep['bin_overlap']['ms'] / rep['bin_overlap']['bound_ms']:.1f}x, "
+        f"/ recounted {rep['bin_overlap']['ms'] / recount:.1f}x")
     return hist
 
 
 def bin_switches(kernels, n: int):
-    """The n_bins on either side of each switch of K8's plan for ``n``
-    reads on this card: where the bins stop fitting one tile (shared
-    route) and where the rule turns to the global route."""
-    def first(pred, route):
-        lo, hi = 1, 1 << 20
-        if not pred(kernels.bin_overlap_plan(n, hi, "cuda", route)):
-            return None
-        while hi - lo > 1:
-            mid = (lo + hi) // 2
-            if pred(kernels.bin_overlap_plan(n, mid, "cuda", route)):
-                hi = mid
-            else:
-                lo = mid
-        return hi
-
-    cuts = (first(lambda p: p["tiles"] > 1, "shared"),
-            first(lambda p: p["route"] == "global", "auto"))
-    return sorted({x for c in cuts if c for x in (c - 1, c)})
-
-
-def device_us(fn, reps: int = 20) -> dict:
-    """Device time per call (us) of each kernel and memset that ``fn``
-    launches, from ``torch.profiler``; {"profiler failed": reason} where
-    the profiler sees no device time on this machine."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = prof.key_averages()
-    except Exception as exc:   # a diagnostic line, not a check
-        return {"profiler failed": repr(exc)[:80]}
-    out = {}
-    for r in rows:
-        t = getattr(r, "device_time_total", None)
-        if t is None:
-            t = getattr(r, "cuda_time_total", 0)
-        if t:
-            out[r.key[:48]] = round(t / reps, 2)
-    return out
-
-
-def study_bin_routes(kernels, case, starts, ends, bin_size, n_bins,
-                     tag="3 kernels"):
-    """K8 forced onto each route on one set of reads (bins from 0), both
-    equal to the plain version: the times the rule of csrc/bins.cu is read
-    against."""
-    import torch
-
-    s = torch.from_numpy(starts).cuda()
-    e = torch.from_numpy(ends).cuda()
-    args = (s, e, 0, bin_size, n_bins)
-    want = kernels.bin_overlap_torch(*args)
-    ms = {}
-    for route in ("shared", "global"):
-        require(torch.equal(kernels.bin_overlap(*args, route=route), want),
-                f"K8 on the {route} route != plain ({case}, {n_bins} bins)")
-        ms[route] = cuda_ms(lambda: kernels.bin_overlap(*args, route=route))
-    auto = kernels.bin_overlap_plan(len(starts), n_bins, "cuda")
-    clean = cuda_ms(lambda: kernels.bin_overlap(*args), clean=True)
-    log(f"[{tag}] K8 routes, {case}, {len(starts)} reads, {n_bins} bins: "
-        f"ms shared {ms['shared']:.4f} global {ms['global']:.4f}; the rule "
-        f"takes {auto}, ms {clean:.4f} after a clean flush; device us a "
-        f"call (profiler): {device_us(lambda: kernels.bin_overlap(*args))}")
+    """The n_bins at and on either side of the switch of K8's plan for
+    ``n`` reads on this card, where the bins stop fitting one tile of
+    shared memory."""
+    lo, hi = 1, 1 << 20
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if kernels.bin_overlap_plan(n, mid, "cuda")["tiles"] > 1:
+            hi = mid
+        else:
+            lo = mid
+    return [hi - 1, hi, hi + 1]
 
 
 def check_match(kernels, case, p1, p2, cutoff, report, tag="3 kernels"):
@@ -928,17 +870,6 @@ def check_6col(kernels, case, ints, packed, report, plain_reps=30,
     for name, (kern, plain, bound) in fns.items():
         report[name] = _row(f"{case}, {n} pairs, {n_int} intervals",
                             errs[name], kern, plain, bound, plain_reps)
-    if os.environ.get("CORAL_K4_SWEEP"):
-        k4 = {}
-        for cap in ("8", "4", "2", "1"):
-            os.environ["CORAL_K4_BLOCKS_PER_SM"] = cap
-            require(torch.equal(kernels.pair6_support(*args, **kw), sup_p),
-                    f"K4 != plain at {cap} blocks an SM ({case})")
-            k4[cap] = round(cuda_ms(
-                lambda: kernels.pair6_support(*args, **kw)), 4)
-        del os.environ["CORAL_K4_BLOCKS_PER_SM"]
-        log(f"[{tag}] 6-column {case}: K4 ms by blocks an SM {k4}, K3 "
-            f"{report['pair6']['ms']:.4f}")
     sup = sup_k.cpu().numpy()
     _log_rows(tag, f"6-column {case}: n={n} n_int={n_int} "
               f"hits={int(hit_k.sum())} found_i={int((io >= 0).sum())} "
@@ -951,6 +882,8 @@ def check_6col(kernels, case, ints, packed, report, plain_reps=30,
 def phase_kernels() -> dict:
     """Every kernel against its plain version.  Returns name -> list of
     per-case reports; the result line carries the last case of each."""
+    import torch
+
     from coral_tpu_torch.ops import kernels
     from coral_tpu_torch.ops.scoring import pair_predicate_packed_np
 
@@ -1004,18 +937,9 @@ def phase_kernels() -> dict:
     for n_bins in (256, 1 << 16):
         check_bins(kernels, "bench sorted by start", *sorted_reads, 0,
                    READ_SPAN // n_bins, n_bins, reports)
-    for n_bins in (256, 4096, 1 << 14, *switches, 1 << 16, 1 << 18):
-        study_bin_routes(kernels, "bench", starts, ends, READ_SPAN // n_bins,
-                         n_bins)
-    for n_bins in (256, 1 << 16):
-        study_bin_routes(kernels, "bench sorted by start", *sorted_reads,
-                         READ_SPAN // n_bins, n_bins)
-    # the shape of phase 4d: one chromosome's sorted reads of 1.5 kb
-    rng = np.random.default_rng(3)
-    n_chr = -(-WGS_CHR_LEN // COVERAGE_BIN)
-    ws = np.sort(rng.integers(0, WGS_CHR_LEN - 1500, 517_992)).astype(np.int32)
-    study_bin_routes(kernels, "WGS-like, sorted reads of 1.5 kb", ws,
-                     ws + 1500, COVERAGE_BIN, n_chr)
+    floor = torch.zeros(1, dtype=torch.int64, device="cuda")
+    log(f"[3 kernels] the floor of a call, one kernel that zeroes 8 B, "
+        f"timed as every kernel here: {cuda_ms(floor.zero_):.4f} ms")
     rng = np.random.default_rng(2)
     for n in (2048, 1001, 4096):
         check_match(kernels, "bench",
@@ -1482,12 +1406,14 @@ def phase_coverage_path(rec, report):
             "bins do not add up to the aligned bases")
     n_reads = sum(len(s) for s, _ in spans)
     require(n_reads == int((bam.ref_id >= 0).sum()), "reads left out")
-    # K8 against its plain version at this path's own shape, with its times
+    # K8 on the same reads in 1 kb bins, six tiles of shared memory (a
+    # caller's finer binning), then at this path's own shape, with its
+    # times (the result line carries the last)
+    check_bins(kernels, "WGS sample, one chromosome, 1 kb bins", *spans[0],
+               0, 1_000, -(-WGS_CHR_LEN // 1_000), report, tag="4d bins")
     hist = check_bins(kernels, "WGS sample, one chromosome", *spans[0], 0,
                       COVERAGE_BIN, n_bins, report, tag="4d bins")
     require(np.array_equal(hist, hists[0]), "K8 at the path's shape != path")
-    study_bin_routes(kernels, "WGS sample, one chromosome", *spans[0],
-                     COVERAGE_BIN, n_bins, tag="4d bins")
     log(f"[4d bins] {n_reads} reads on {len(spans)} chromosomes, {n_bins} "
         f"bins of {COVERAGE_BIN} each: bin_coverage(cuda) {t_bins:.3f} s "
         f"(copies included) == CoverageIndex.bin_histogram ({t_index:.3f} s, "
@@ -1619,10 +1545,6 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     report = phase_kernels()
-    if sys.argv[1:] == ["--kernels"]:
-        # phases 1-3 alone: no main path, so no result line
-        log(f"[done] phases 1-3 in {time.perf_counter() - t_start:.1f} s")
-        return 0
     with tempfile.TemporaryDirectory() as work:
         rec, launches, wgs_errs, scoring = phase_main_path(work)
         launches6 = phase_six_column_path(rec, scoring, report)

@@ -13,54 +13,86 @@
 //              and the whole bins b0+1..b1-1 go into a difference array
 //              of counts, +1 at b0 + 1 and -1 at b1 (nothing if b1 = b0+1);
 //   out[b] = partial[b] + bin_size * (count[0] + ... + count[b]).
-// That is at most four updates a read (PR 3's kernel made one atomic per
+// That is at most four updates a read (the first port made one atomic per
 // touched bin: about eleven a read at 65,536 bins over the bench reads).
 // A read with e <= s (a pad, or an empty read) adds nothing; a read that
 // starts before `origin` or ends past the last edge is clipped.
 //
 // What bounds it on this card: the 8 B read per read against 3.35 TB/s,
-// once the updates stay on the SM; PR 3's kernel was 5-26x that bound,
+// once the updates stay on the SM; the first port was 5-26x that bound,
 // held back by its atomics.  So the updates are merged before they are
 // made: a thread takes kRun contiguous reads (one int4 load a column) and
-// keeps a running (bin, sum) of the partials, which it hands on with one
-// atomic only when the bin changes; at the end of the run the warp hands
-// on its lanes' sums, with one atomic when all 32 hold the same bin
-// (sorted reads) and one a lane otherwise.  A first version combined the
-// lanes at every hand-on with __match_any_sync and warp reductions, as
-// K4 does; over random reads, where nothing combines, that cost 4x PR 3's
-// time at 256 bins (see PERF.md, PR 4).  A read's bins come from a 32-bit
-// multiply-high by a precomputed reciprocal (Granlund and Montgomery)
-// wherever the binned range is shorter than 2^32 (every chromosome), and
-// everything after the clip is then 32-bit.
+// keeps running sums of the partials in a window of two bins (b, b + 1:
+// sorted reads that straddle one edge, as the junction records piled on
+// an amplicon's edge do, fill both without an atomic), handing a sum on
+// with one atomic only when it leaves the window; at the end of the run
+// the warp hands on its lanes' windows, with one atomic a bin when all 32
+// start at the same bin (sorted reads) and one a lane and bin otherwise.
+// A block whose reads cannot sum to 2^32 in one bin (its reads times
+// bin_size below it, as on every chromosome) does not wait for the old
+// value of its shared-memory adds.  (Combining the lanes at every
+// hand-on with __match_any_sync, as K4 does, cost 4x the first port's
+// time over random reads at 256 bins, where nothing combines.)  A read's
+// bins come from a 32-bit multiply-high by a precomputed reciprocal
+// (Granlund and Montgomery) wherever the binned range is shorter than
+// 2^32 (every chromosome), and everything after the clip is then 32-bit.
+// What still holds it above that bound (numbers below): over random reads
+// the shared-memory atomics, whose old value the carry needs, with the
+// lanes of a warp on different bins (about 14 us of device time for 2^21
+// reads into 256 bins, bound 5 us); past one tile, a pass over the reads
+// per tile and the flushes; on one chromosome, the floor of a launch.
 //
-// Where the sums live (one rule, `plan_for`):
-// - "shared": the bins are cut into tiles of at most what a block may hold
-//   in shared memory (the card's opt-in limit, 227 KB on an H100: 12 B a
-//   bin: partials as two 32-bit words with an explicit carry, so that every
-//   shared-memory atomic is a native 32-bit one, and int32 counts; 19,285
-//   bins a tile).  A block owns one tile and a chunk of the reads, takes
-//   from each read only the updates that fall in its tile (counts before
-//   the tile go into a carry), runs its own scan of the counts and adds
-//   partial + bin_size * prefix into `out` once, one 64-bit atomic per
-//   non-zero bin.  The grid is one wave of resident blocks
-//   (cudaOccupancyMaxActiveBlocksPerMultiprocessor), cut into tiles x
-//   chunks, every block with the same number of chunks.  Its cost beyond
-//   the reads is that flush, chunks x n_bins bins, and reading the reads
-//   once per tile.
-// - "global": partials (64-bit) go straight into `out` and counts into a
-//   zeroed int32 array with global atomics; a second kernel, bin_scan,
-//   adds bin_size * prefix(count) into `out`.  Its cost beyond the reads
-//   is the atomics in L2, up to four a read.
-// The rule takes "shared" unless its flush and re-reads, counted in bins
-// and reads, exceed kGlobalPerRead times the reads.  Integer adds commute,
-// so the totals are exact and the same on every run.
+// Where the sums live (`plan_for`): the bins are cut into tiles of at
+// most what a block may hold in shared memory (the card's opt-in limit,
+// 227 KB on an H100; 8 B a bin: a 32-bit partial whose rare carries go
+// straight to `out`, and an int32 count: 28,928 bins a tile).  A block
+// owns one tile and a contiguous run of chunks of the reads, and takes
+// from each read only the updates that fall in its tile (counts before
+// the tile go into a carry).  It tracks the bins its reads reach, and
+// scans the counts and adds partial + bin_size * prefix into `out` over
+// those alone, one 64-bit atomic per non-zero bin (a block of sorted reads
+// reaches a few bins of a tile of thousands, and one warp scans them; a
+// block none of whose reads spans a whole bin adds its partials without a
+// scan).  The grid is one wave of resident blocks of 1024 threads (from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor), cut into tiles x
+// blocks, every block with the same number of chunks.  Beyond the reads
+// it costs a pass over them per tile and the flush, at most blocks x
+// n_bins atomics (random reads), far fewer over sorted ones.
+//
+// Measured and not kept (coral_tpu_torch/tools/kernel_ab.py, NVIDIA H100
+// 80GB HBM3 at 700 W, device time of a call from the profiler):
+// - a second route, partials and counts in device memory with global
+//   atomics and a scan kernel after it, chosen by a price rule fitted to
+//   random reads (it won there only past ~340,000 bins: 0.219 against
+//   0.269 ms at 549,632).  Over the sorted reads every caller passes it
+//   never won: on the WGS sample's first chromosome, 517,992 reads, it
+//   took 155 us against 7.2 at 100 kb bins, 88 against 7.9 at 10 kb, 121
+//   against 32.6 at 1 kb and 381 against 178 at 100 bp (where the rule
+//   chose it; the first port took 278), its atomics piling onto the
+//   amplicon's bins;
+// - blocks of 512 threads: equal on that chromosome, 76 against 55 us at
+//   2^21 reads x 65,536 bins and 232 against 178 at 100 bp bins; blocks
+//   of 256 were slower still;
+// - a 64-register cap (__launch_bounds__(1024, 1)) in place of 32: equal
+//   at every shape (7.25 against 7.17 us on the chromosome);
+// - a running sum of one bin in place of the window: 7.0 us against 4.9
+//   on the chromosome in 100 kb bins (where the first port took 6.8),
+//   but 52.0 against 57.5 at 2^21 random reads x 65,536 bins and 13.7
+//   against 14.4 at 256 bins (the window's 64-bit instance spills 68 B,
+//   its 32-bit one none).
+//
+// On the same card (kernel_ab.py, the same inputs through the first
+// port's kernel, a thread a read and one atomic a touched bin, in one
+// run; device time of a call, zeroing of `out` included): the WGS
+// sample's first chromosome in 1,594 bins 4.9 us (6.8), in 15,935 bins
+// 5.6 (220), 159,346 bins 23.7 (239), 1,593,460 bins 153 (276); 2^21
+// random reads x 256 bins 14.4 (18.3), x 65,536 bins 57.5 (392).
 //
 // Edges and sums are int64: the TPU kernel casts the edges to int32 and
 // sums in int32, so this kernel equals it wherever neither wraps.  Counts
 // are taken modulo 2^32; a prefix is a number of reads, so n < 2^32.
 
 #include <algorithm>
-#include <initializer_list>
 
 #include "pair_common.cuh"
 
@@ -69,21 +101,10 @@ namespace {
 typedef unsigned long long u64;
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-// threads a block: kWideBlock when a tile takes more than a quarter of the
-// shared memory a block may have (an SM then holds one to three such
-// blocks), else kNarrowBlock, so that an SM holds several blocks whose
-// phases overlap
-constexpr int kWideBlock = 1024;
-constexpr int kNarrowBlock = 256;
+constexpr int kBlock = 1024;         // threads a block
 constexpr int kRun = 4;              // contiguous reads a thread, one int4
-constexpr int kBytesPerBin = 12;     // partial (2 x u32) + count (int32)
-constexpr int kStaticSmem = 1024;    // left for the kernels' static arrays
-constexpr int kScanThreads = 1024;
-constexpr int kScanTile = 8192;      // bins a block of bin_scan
-constexpr int kScanBlocks = 32;
-// the rule: "shared" while chunks x n_bins + (tiles - 1) x n is at most
-// this many times n
-constexpr int kGlobalPerRead = 8;
+constexpr int kBytesPerBin = 8;      // partial (u32) + count (int32)
+constexpr int kStaticSmem = 1024;    // left for the kernel's static arrays
 
 struct Bins {
   int64_t origin;
@@ -195,22 +216,13 @@ __device__ __forceinline__ void block_scan(int32_t tn, uint32_t carry,
   }
 }
 
-// A read's bin, x in [origin, last_edge)
-template <bool kNarrow>
-__device__ __forceinline__ int32_t bin_of(const Bins& g, int64_t x) {
-  return kNarrow ? static_cast<int32_t>(
-                       g.div32(static_cast<uint32_t>(x - g.origin)))
-                 : static_cast<int32_t>(static_cast<u64>(x - g.origin) /
-                                        static_cast<u64>(g.bin_size));
-}
-
-// kRun reads from `first` ([0, 0), which adds nothing, past the end)
+// kRun reads from `first` ([0, 0), which adds nothing, at or past `last`)
 template <int kRun_>
 __device__ __forceinline__ void load_run(const int32_t* __restrict__ starts,
                                          const int32_t* __restrict__ ends,
-                                         int64_t n, int64_t first, int vec,
+                                         int64_t last, int64_t first, int vec,
                                          int32_t* s, int32_t* e) {
-  if (vec && first + kRun_ <= n) {
+  if (vec && first + kRun_ <= last) {
     const int4* s4 = reinterpret_cast<const int4*>(starts + first);
     const int4* e4 = reinterpret_cast<const int4*>(ends + first);
 #pragma unroll
@@ -225,90 +237,62 @@ __device__ __forceinline__ void load_run(const int32_t* __restrict__ starts,
   }
 #pragma unroll
   for (int k = 0; k < kRun_; ++k) {
-    const bool in = first + k < n;
+    const bool in = first + k < last;
     s[k] = in ? starts[first + k] : 0;
     e[k] = in ? ends[first + k] : 0;
   }
 }
 
-// The scatter of both routes.  Block (x, y) takes the chunks x, x +
-// gridDim.x, ... of kThr * kRun reads; on the shared route it owns
-// the tile of bins [y * tile, y * tile + tile), on the global route all
-// bins (gridDim.y = 1) and `counts` is a zeroed int32 array of n_bins.
-// On the shared route a block whose one chunk is all its reads first
-// finds the bins they reach and zeroes, scans and flushes only those (a
-// chunk of sorted reads reaches a few bins of a tile of thousands).
-template <bool kShared, bool kNarrow, int kThr>
-__global__ void __launch_bounds__(kThr, 2048 / kThr)
+// Block (x, y) takes the chunks [x * runs, x * runs + runs) of
+// kBlock * kRun reads and owns the tile of bins [y * tile, y * tile +
+// tile).  `no_carry`: no partial of a block can reach 2^32 (its reads
+// times bin_size is below it), so the shared-memory adds need not wait
+// for the old value.
+template <bool kNarrow>
+__global__ void __launch_bounds__(kBlock, 2)
 bin_overlap_kernel(const int32_t* __restrict__ starts,
                    const int32_t* __restrict__ ends, int64_t n, Bins g,
-                   int32_t tile, int vec, u64* __restrict__ out,
-                   int32_t* __restrict__ counts) {
+                   int32_t tile, int32_t runs, int vec, int no_carry,
+                   u64* __restrict__ out) {
   extern __shared__ uint32_t smem[];
-  __shared__ uint32_t warp_sums[kThr / 32];
+  __shared__ uint32_t warp_sums[kBlock / 32];
   __shared__ uint32_t carry_total;
   __shared__ int32_t reach_lo, reach_hi;
-  const int32_t t0 = kShared ? static_cast<int32_t>(blockIdx.y) * tile : 0;
-  const int32_t tn = kShared ? min(tile, g.n_bins - t0) : g.n_bins;
-  uint32_t* lo = smem;
-  uint32_t* hi = smem + tile;
-  int32_t* cnt = reinterpret_cast<int32_t*>(smem + 2 * tile);
-  const int64_t chunk = static_cast<int64_t>(kThr) * kRun;
-  const int64_t base0 = static_cast<int64_t>(blockIdx.x) * chunk;
+  const int32_t t0 = static_cast<int32_t>(blockIdx.y) * tile;
+  const int32_t tn = min(tile, g.n_bins - t0);
+  uint32_t* part = smem;
+  int32_t* cnt = reinterpret_cast<int32_t*>(smem + tile);
+  const int64_t chunk = static_cast<int64_t>(kBlock) * kRun;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * runs * chunk;
+  const int64_t last = min(n, first + runs * chunk);
   int32_t s[kRun], e[kRun];
-  load_run<kRun>(starts, ends, n, base0 + threadIdx.x * kRun, vec, s, e);
-  // the tile's bins [ra, rz) that this block zeroes, scans and flushes
-  int32_t ra = 0, rz = tn;
-  if (kShared) {
-    if (threadIdx.x == 0) {
-      carry_total = 0;
-      reach_lo = INT32_MAX;
-      reach_hi = -1;
-    }
-    __syncthreads();
-    if (static_cast<int64_t>(gridDim.x) * chunk >= n) {
-      int64_t mlo = INT64_MAX, mhi = INT64_MIN;
-#pragma unroll
-      for (int k = 0; k < kRun; ++k) {
-        const int64_t l = s[k] > g.origin ? s[k] : g.origin;
-        const int64_t h = e[k] < g.last_edge ? e[k] : g.last_edge;
-        if (h > l) {
-          mlo = l < mlo ? l : mlo;
-          mhi = h > mhi ? h : mhi;
-        }
-      }
-      if (mhi > INT64_MIN) {
-        atomicMin(&reach_lo, bin_of<kNarrow>(g, mlo));
-        atomicMax(&reach_hi, bin_of<kNarrow>(g, mhi - 1));
-      }
-      __syncthreads();
-      ra = min(max(reach_lo - t0, 0), tn);
-      rz = max(min(reach_hi + 1 - t0, tn), ra);
-    }
-    for (int32_t i = ra + threadIdx.x; i < rz; i += blockDim.x) {
-      lo[i] = 0;
-      hi[i] = 0;
-      cnt[i] = 0;
-    }
-    __syncthreads();
+  load_run<kRun>(starts, ends, last, first + threadIdx.x * kRun, vec, s, e);
+  if (threadIdx.x == 0) {
+    carry_total = 0;
+    reach_lo = INT32_MAX;
+    reach_hi = -1;
   }
+  for (int32_t i = threadIdx.x; i < tn; i += blockDim.x) {
+    part[i] = 0;
+    cnt[i] = 0;
+  }
+  __syncthreads();
   uint32_t carry = 0;  // count differences before the tile
+  bool counted = false;  // the thread made a count difference
+  int32_t lo_bin = INT32_MAX, hi_bin = -1;  // the bins the reads reach
   auto add_part = [&](int32_t b, u64 v) {
-    if (kShared) {
-      const int32_t i = b - t0;
-      const uint32_t v_lo = static_cast<uint32_t>(v);
-      const uint32_t old = atomicAdd(&lo[i], v_lo);
-      const uint32_t h = static_cast<uint32_t>(v >> 32) +
-                         (old + v_lo < old ? 1u : 0u);
-      if (h) atomicAdd(&hi[i], h);
-    } else {
-      atomicAdd(&out[b], v);
+    const int32_t i = b - t0;
+    const uint32_t v_lo = static_cast<uint32_t>(v);
+    if (no_carry) {
+      atomicAdd(&part[i], v_lo);
+      return;
     }
+    const uint32_t old = atomicAdd(&part[i], v_lo);
+    const u64 h = (v >> 32) + (old + v_lo < old ? 1u : 0u);
+    if (h) atomicAdd(&out[b], h << 32);
   };
   auto add_count = [&](int32_t b, int32_t d) {
-    if (!kShared) {
-      atomicAdd(&counts[b], d);
-    } else if (b < t0) {
+    if (b < t0) {
       carry += static_cast<uint32_t>(d);
     } else if (b - t0 < tn) {
       atomicAdd(&cnt[b - t0], d);
@@ -316,126 +300,131 @@ bin_overlap_kernel(const int32_t* __restrict__ starts,
   };
   // the lane's running partial: bin rb (-1: none) holds rv; a partial in
   // another bin hands it on with one atomic
-  int32_t rb = -1;
-  u64 rv = 0;
-  auto step = [&](int32_t b, u64 v) {
-    if (b < t0 || b - t0 >= tn) return;   // b < 0 too: t0 >= 0
-    if (b == rb) {
-      rv += v;
-      return;
-    }
-    if (rb >= 0) add_part(rb, rv);
-    rb = b;
-    rv = v;
+  // the lane's window of two bins: rb holds rv0 and rb + 1 holds rv1, so
+  // that sorted reads that straddle one edge add nothing until the window
+  // moves; a sum is handed on with one atomic when it leaves the window
+  int32_t rb = -2;
+  u64 rv0 = 0, rv1 = 0;
+  auto hand_on = [&](int32_t b, u64 v) {
+    if (v && b >= t0 && b - t0 < tn) add_part(b, v);
   };
-  for (int64_t base = base0; base < n;
-       base += static_cast<int64_t>(gridDim.x) * chunk) {
-    if (base != base0) {
-      load_run<kRun>(starts, ends, n, base + threadIdx.x * kRun, vec, s, e);
+  for (int64_t base = first; base < last; base += chunk) {
+    if (base != first) {
+      load_run<kRun>(starts, ends, last, base + threadIdx.x * kRun, vec, s,
+                     e);
     }
 #pragma unroll
     for (int k = 0; k < kRun; ++k) {
       const Events ev = read_events<kNarrow>(g, s[k], e[k]);
-      step(ev.b0, ev.v0);
-      step(ev.b1, ev.v1);
+      if (ev.b0 < 0) continue;
+      lo_bin = min(lo_bin, ev.b0);
+      hi_bin = max(hi_bin, ev.b1 >= 0 ? ev.b1 : ev.b0);
+      if (ev.b0 != rb) {
+        hand_on(rb, rv0);
+        if (ev.b0 == rb + 1) {
+          rv0 = rv1;
+        } else {
+          hand_on(rb + 1, rv1);
+          rv0 = 0;
+        }
+        rv1 = 0;
+        rb = ev.b0;
+      }
+      rv0 += ev.v0;
+      if (ev.b1 == rb + 1) {
+        rv1 += ev.v1;
+      } else if (ev.b1 >= 0) {
+        hand_on(ev.b1, ev.v1);
+      }
       if (ev.whole) {
+        counted = true;
         add_count(ev.b0 + 1, 1);
         add_count(ev.b1, -1);
       }
     }
-    // hand on the run's last sum, all lanes together: one atomic for the
-    // warp when every lane holds the same bin (sorted reads), else one a
-    // lane.  A lane's sum is at most 2 kRun reads of < 2^32 bases each.
+    // hand on the run's window, all lanes together: one atomic a bin for
+    // the warp when every lane's window starts at the same bin (sorted
+    // reads), else one a lane and bin.  A lane's sum is at most 2 kRun
+    // partials of < 2^32 bases each.
     const int32_t b_0 = __shfl_sync(kFull, rb, 0);
     if (__all_sync(kFull, rb == b_0)) {
-      if (b_0 >= 0) {
-        const uint32_t low = __reduce_add_sync(
-            kFull, static_cast<uint32_t>(rv & 0xFFFFFF));
-        const uint32_t top = __reduce_add_sync(
-            kFull, static_cast<uint32_t>(rv >> 24));
-        if ((threadIdx.x & 31) == 0) {
-          add_part(b_0, low + (static_cast<u64>(top) << 24));
-        }
+      const uint32_t low0 = __reduce_add_sync(
+          kFull, static_cast<uint32_t>(rv0 & 0xFFFFFF));
+      const uint32_t top0 = __reduce_add_sync(
+          kFull, static_cast<uint32_t>(rv0 >> 24));
+      const uint32_t low1 = __reduce_add_sync(
+          kFull, static_cast<uint32_t>(rv1 & 0xFFFFFF));
+      const uint32_t top1 = __reduce_add_sync(
+          kFull, static_cast<uint32_t>(rv1 >> 24));
+      if ((threadIdx.x & 31) == 0) {
+        hand_on(b_0, low0 + (static_cast<u64>(top0) << 24));
+        hand_on(b_0 + 1, low1 + (static_cast<u64>(top1) << 24));
       }
-    } else if (rb >= 0) {
-      add_part(rb, rv);
+    } else {
+      hand_on(rb, rv0);
+      hand_on(rb + 1, rv1);
     }
-    rb = -1;
-    rv = 0;
+    rb = -2;
+    rv0 = 0;
+    rv1 = 0;
   }
-  if (!kShared) return;
   carry = __reduce_add_sync(kFull, carry);
-  if ((threadIdx.x & 31) == 0 && carry) atomicAdd(&carry_total, carry);
-  __syncthreads();
-  // bins of the tile before ra: no count difference reaches them (a read
-  // before the tile makes ra 0), so nothing to add; after rz: none either
+  lo_bin = __reduce_min_sync(kFull, lo_bin);
+  hi_bin = __reduce_max_sync(kFull, hi_bin);
+  if ((threadIdx.x & 31) == 0) {
+    if (carry) atomicAdd(&carry_total, carry);
+    if (hi_bin >= 0) {
+      atomicMin(&reach_lo, lo_bin);
+      atomicMax(&reach_hi, hi_bin);
+    }
+  }
+  const bool any_count = __syncthreads_or(counted);
+  // the tile's bins [ra, rz) that the block's reads reach: before ra no
+  // count difference (a read before the tile makes ra 0), past rz none
+  const int32_t ra = reach_hi < 0 ? 0 : min(max(reach_lo - t0, 0), tn);
+  const int32_t rz = reach_hi < 0 ? 0 : max(min(reach_hi + 1 - t0, tn), ra);
   const u64 bin_size = static_cast<u64>(g.bin_size);
+  auto flush = [&](int32_t i, uint32_t prefix) {
+    const u64 v = part[i] + bin_size * prefix;
+    if (v) atomicAdd(&out[t0 + i], v);
+  };
+  if (!any_count) {
+    // no read of the block spans a whole bin (reads much shorter than
+    // bins, as on a chromosome in 100 kb bins): the partials alone
+    for (int32_t i = ra + threadIdx.x; i < rz; i += kBlock) flush(i, 0);
+    return;
+  }
+  if (rz - ra <= 32) {
+    // a few bins (sorted reads): the first warp scans them alone
+    if (threadIdx.x < 32) {
+      const int32_t i = ra + static_cast<int32_t>(threadIdx.x);
+      uint32_t x = i < rz ? static_cast<uint32_t>(cnt[i]) : 0u;
+      for (int d = 1; d < 32; d <<= 1) {
+        const uint32_t y = __shfl_up_sync(kFull, x, d);
+        if (threadIdx.x >= d) x += y;
+      }
+      if (i < rz) flush(i, carry_total + x);
+    }
+    return;
+  }
   block_scan(
       rz - ra, carry_total, [&](int32_t i) { return cnt[ra + i]; },
-      [&](int32_t i, uint32_t prefix) {
-        const u64 v = ((static_cast<u64>(hi[ra + i]) << 32) | lo[ra + i]) +
-                      bin_size * prefix;
-        if (v) atomicAdd(&out[t0 + ra + i], v);
-      },
-      warp_sums);
-}
-
-// The global route's second pass: out[b] += bin_size * (counts[0] + ... +
-// counts[b]).  Block y takes the bins [y * tile, y * tile + tile) and
-// first sums the counts before them itself.
-__global__ void __launch_bounds__(kScanThreads)
-bin_scan_kernel(const int32_t* __restrict__ counts, int32_t n_bins,
-                int32_t tile, int64_t bin_size, u64* __restrict__ out) {
-  __shared__ uint32_t warp_sums[kScanThreads / 32];
-  __shared__ uint32_t carry_total;
-  const int32_t t0 = static_cast<int32_t>(blockIdx.x) * tile;
-  const int32_t tn = min(tile, n_bins - t0);
-  if (threadIdx.x == 0) carry_total = 0;
-  __syncthreads();
-  uint32_t carry = 0;
-  for (int32_t i = threadIdx.x; i < t0; i += blockDim.x) {
-    carry += static_cast<uint32_t>(counts[i]);
-  }
-  carry = __reduce_add_sync(kFull, carry);
-  if ((threadIdx.x & 31) == 0 && carry) atomicAdd(&carry_total, carry);
-  __syncthreads();
-  const u64 bs = static_cast<u64>(bin_size);
-  block_scan(
-      tn, carry_total, [&](int32_t i) { return counts[t0 + i]; },
-      [&](int32_t i, uint32_t prefix) {
-        if (prefix) out[t0 + i] += bs * prefix;
-      },
-      warp_sums);
+      [&](int32_t i, uint32_t prefix) { flush(ra + i, prefix); }, warp_sums);
 }
 
 struct Plan {
-  int route;    // 0 shared, 1 global
-  int tiles;    // shared: tiles of bins (grid y)
-  int tile;     // shared: bins a tile
-  int blocks;   // grid x: chunks of the reads
-  int threads;  // a block: kWideBlock or kNarrowBlock
+  int tiles;    // tiles of bins (grid y)
+  int tile;     // bins a tile
+  int blocks;   // blocks a tile (grid x), each a run of chunks of the reads
 };
 
-// Blocks for `chunks` chunks of reads, at most `most`, each block taking
-// the same number of chunks (a block with one chunk more than the others
-// would double the time of a short run).
-int64_t even_blocks(int64_t chunks, int64_t most) {
-  const int64_t rounds = (chunks + most - 1) / most;
-  return (chunks + rounds - 1) / rounds;
-}
-
-template <bool kShared, bool kNarrow>
-auto kernel_for(int threads) {
-  return threads == kWideBlock ? bin_overlap_kernel<kShared, kNarrow,
-                                                    kWideBlock>
-                               : bin_overlap_kernel<kShared, kNarrow,
-                                                    kNarrowBlock>;
-}
-
-// The route and grid for n reads over n_bins bins; `want` -1 lets the
-// rule choose, 0 or 1 forces a route.  Also lets the shared route's
-// kernels take all the shared memory a block may opt in to.
-Plan plan_for(int64_t n, int32_t n_bins, int want, int device) {
+// The grid for n reads over n_bins bins: tiles of at most what a block
+// may hold in shared memory, and one wave of resident blocks cut into
+// tiles x blocks, each block with the same number of chunks (a block
+// with one chunk more than the others would double the time of a short
+// run).  Also lets the kernel's blocks take all the shared memory a block
+// may opt in to.
+Plan plan_for(int64_t n, int32_t n_bins, int device) {
   Plan p{};
   int optin = 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -445,40 +434,20 @@ Plan plan_for(int64_t n, int32_t n_bins, int want, int device) {
   }
   const int64_t per_tile = (optin - kStaticSmem) / kBytesPerBin;
   const int most = static_cast<int>(per_tile * kBytesPerBin);
-  for (int threads : {kWideBlock, kNarrowBlock}) {
-    cudaFuncSetAttribute(kernel_for<true, true>(threads),
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    cudaFuncSetAttribute(kernel_for<true, false>(threads),
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-  }
+  cudaFuncSetAttribute(bin_overlap_kernel<true>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  cudaFuncSetAttribute(bin_overlap_kernel<false>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, most);
   p.tiles = static_cast<int>((n_bins + per_tile - 1) / per_tile);
   p.tile = static_cast<int>((n_bins + p.tiles - 1) / p.tiles);
   const size_t smem = static_cast<size_t>(p.tile) * kBytesPerBin;
-  p.threads = 4 * static_cast<int64_t>(smem) > most ? kWideBlock
-                                                     : kNarrowBlock;
-  const int sms = coral::sm_count(device);
-  const int64_t chunk = static_cast<int64_t>(p.threads) * kRun;
+  const int64_t wave = static_cast<int64_t>(coral::sm_count(device)) *
+      coral::resident_blocks(bin_overlap_kernel<true>, kBlock, smem);
+  const int64_t chunk = static_cast<int64_t>(kBlock) * kRun;
   const int64_t chunks = std::max<int64_t>(1, (n + chunk - 1) / chunk);
-  const int64_t wave = static_cast<int64_t>(sms) *
-      coral::resident_blocks(kernel_for<true, true>(p.threads), p.threads,
-                             smem);
-  const int64_t shared_blocks =
-      even_blocks(chunks, std::max<int64_t>(1, wave / p.tiles));
-  const int64_t shared_cost = shared_blocks * n_bins + (p.tiles - 1) * n;
-  p.route = want >= 0 ? want : (shared_cost <= kGlobalPerRead * n ? 0 : 1);
-  if (p.route == 0) {
-    p.blocks = static_cast<int>(shared_blocks);
-    return p;
-  }
-  p.threads = kNarrowBlock;
-  const int64_t gchunk = static_cast<int64_t>(p.threads) * kRun;
-  const int64_t gwave = static_cast<int64_t>(sms) *
-      std::max(1, coral::resident_blocks(kernel_for<false, true>(p.threads),
-                                         p.threads, 0));
-  p.blocks = static_cast<int>(
-      even_blocks(std::max<int64_t>(1, (n + gchunk - 1) / gchunk), gwave));
-  p.tiles = 1;
-  p.tile = n_bins;
+  const int64_t most_blocks = std::max<int64_t>(1, wave / p.tiles);
+  const int64_t runs = (chunks + most_blocks - 1) / most_blocks;
+  p.blocks = static_cast<int>((chunks + runs - 1) / runs);
   return p;
 }
 
@@ -486,38 +455,33 @@ Plan plan_for(int64_t n, int32_t n_bins, int want, int device) {
 
 extern "C" {
 
-// The plan for these sizes (see plan_for): out[0..5) = route (0 shared,
-// 1 global), tiles, bins a tile, blocks a tile, threads a block.  The
-// caller keeps it and hands it to coral_bin_overlap, so that a launch asks
-// the driver nothing.  Returns cudaGetLastError().
-int coral_bin_overlap_plan(long long n, int n_bins, int want, int device,
-                           int* out) {
+// The plan for these sizes (see plan_for): out[0..3) = tiles, bins a
+// tile, blocks a tile.  The caller keeps it and hands it to
+// coral_bin_overlap, so that a launch asks the CUDA runtime nothing.
+// Returns cudaGetLastError().
+int coral_bin_overlap_plan(long long n, int n_bins, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Plan p = plan_for(n, n_bins, want, device);
-  out[0] = p.route;
-  out[1] = p.tiles;
-  out[2] = p.tile;
-  out[3] = p.blocks;
-  out[4] = p.threads;
+  const Plan p = plan_for(n, n_bins, device);
+  out[0] = p.tiles;
+  out[1] = p.tile;
+  out[2] = p.blocks;
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launches on the caller's stream, does not synchronise, and returns
-// cudaGetLastError() (0 when every launch was accepted).  `out` holds
-// n_bins 64-bit sums and is zeroed by the caller; route, tiles, tile,
-// blocks and threads are coral_bin_overlap_plan's for this device, n and
-// n_bins; on the global route `counts` is a zeroed int32 array of n_bins,
-// else it may be null.
+// cudaGetLastError() (0 when the launch was accepted; a launch refused
+// for its shared memory or its grid returns the error).  `out` holds
+// n_bins 64-bit sums and is zeroed by the caller; tiles, tile and blocks
+// are coral_bin_overlap_plan's for this device, n and n_bins.
 int coral_bin_overlap(const void* starts, const void* ends, void* out,
-                      void* counts, long long n, long long origin,
-                      long long bin_size, int n_bins, int route, int tiles,
-                      int tile, int blocks, int threads, int device,
-                      void* stream) {
+                      long long n, long long origin, long long bin_size,
+                      int n_bins, int tiles, int tile, int blocks,
+                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n >= (1LL << 32) || (route == 1 && counts == nullptr) ||
-      (threads != kWideBlock && threads != kNarrowBlock)) {
+  if (n >= (1LL << 32) || tiles < 1 || blocks < 1 ||
+      static_cast<long long>(tiles) * tile < n_bins) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Bins g{origin, bin_size, origin + bin_size * n_bins, n_bins, 0, 0, 0};
@@ -532,29 +496,18 @@ int coral_bin_overlap(const void* starts, const void* ends, void* out,
     g.sh2 = l > 1 ? l - 1 : 0;
   }
   const int vec = coral::aligned(starts, 16) && coral::aligned(ends, 16);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* s = static_cast<const int32_t*>(starts);
-  const int32_t* e = static_cast<const int32_t*>(ends);
-  u64* o = static_cast<u64*>(out);
-  if (route == 0) {
-    const size_t smem = static_cast<size_t>(tile) * kBytesPerBin;
-    const auto kernel = narrow ? kernel_for<true, true>(threads)
-                               : kernel_for<true, false>(threads);
-    kernel<<<dim3(blocks, tiles), threads, smem, st>>>(s, e, n, g, tile, vec,
-                                                       o, nullptr);
-    return static_cast<int>(cudaGetLastError());
-  }
-  int32_t* c = static_cast<int32_t*>(counts);
-  const auto kernel = narrow ? kernel_for<false, true>(threads)
-                             : kernel_for<false, false>(threads);
-  kernel<<<blocks, threads, 0, st>>>(s, e, n, g, n_bins, vec, o, c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int scan_blocks =
-      std::min(kScanBlocks, (n_bins + kScanTile - 1) / kScanTile);
-  const int scan_tile = (n_bins + scan_blocks - 1) / scan_blocks;
-  bin_scan_kernel<<<scan_blocks, kScanThreads, 0, st>>>(c, n_bins, scan_tile,
-                                                         bin_size, o);
+  const int64_t chunk = static_cast<int64_t>(kBlock) * kRun;
+  const int64_t chunks = std::max<int64_t>(1, (n + chunk - 1) / chunk);
+  const int32_t runs = static_cast<int32_t>((chunks + blocks - 1) / blocks);
+  const int no_carry =
+      bin_size < (1LL << 32) / (static_cast<int64_t>(runs) * chunk);
+  const size_t smem = static_cast<size_t>(tile) * kBytesPerBin;
+  const auto kernel = narrow ? bin_overlap_kernel<true>
+                             : bin_overlap_kernel<false>;
+  kernel<<<dim3(blocks, tiles), kBlock, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
+      n, g, tile, runs, vec, no_carry, static_cast<u64*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,22 +28,31 @@
 // at a time, each thread holding one pair across the tiles; the block
 // leaves the tile loop as soon as all of its pairs are done.
 //
-// K4 adds a histogram of the hits by interval, and what bounded it was
-// where the counts went.  PR 3's K4 counted into shared memory up to 8190
-// intervals (K2's limit from its 14-bit packed meta, not a limit of shared
-// memory) and above it straight into the output: on the WGS sample, whose
-// hits fall on 10 intervals, every warp's atomics went to 10 addresses in
-// device memory, and K4 took 2.1x K3's time (0.0536 against 0.0254 ms on
-// an H100 80GB HBM3 at 700 W, chip_smoke.py, PR 3).  Now a block keeps a
-// direct-mapped cache of 2048 bins in shared memory above 8190 intervals
-// (16 KB of tags and counts: hot bins stay on the SM at any number of
-// intervals, and with the 8 KB tile a block takes 24 KB, so the SM still
-// holds K3's 8 blocks).  A slot is claimed by the first bin that reaches
-// it and kept; a bin whose slot holds another bin goes to device memory
-// as before, so many hot bins on one slot cost what PR 3's kernel cost.
+// K4 adds a histogram of the hits by interval, and what bounds it beyond
+// K3 is where the counts go.  Counted straight into the output above 8190
+// intervals (K2's limit from its 14-bit packed meta, not a limit of
+// shared memory), the WGS sample's hits, which fall on 10 intervals, sent
+// every warp's atomic to 10 addresses in device memory: K4 took 2.2x K3's
+// time.  So a block keeps a direct-mapped cache of 2048 bins in shared
+// memory above 8190 intervals (16 KB of tags and counts: hot bins stay on
+// the SM at any number of intervals, and with the 8 KB tile a block takes
+// 24 KB, so the SM still holds K3's 8 blocks, which beat 4, 2 and 1 an SM
+// on the card at 16 and 8,200 intervals).  A slot is claimed by the first
+// bin that reaches it and kept; a bin whose slot holds another bin goes to
+// device memory, so many hot bins on one slot cost what device-memory
+// atomics cost.  On an NVIDIA H100 80GB HBM3 at 700 W
+// (coral_tpu_torch/tools/kernel_ab.py) K4 takes 0.0292 ms on the WGS-like
+// decoys-last shape against K3's 0.0245 (the device-memory counts took
+// 0.0530): 1.19x.  What it still
+// pays beyond K3 is the zeroed output, a kernel and a launch of its own
+// (the floor of one timed call is 0.005 ms), and the flush, 1,056 blocks
+// adding to 10 bins on one line of L2.  Clusters of 8 blocks that add
+// their bins together through distributed shared memory before the flush
+// made every shape slower (a cluster launch holds fewer blocks on the
+// card), so K4 does not use them.
 
 #include <algorithm>
-#include <cstdlib>
+#include <atomic>
 
 #include "pair_common.cuh"
 
@@ -264,6 +273,29 @@ Cols cols_of(const void* qgap, const void* r1_i, const void* r2_i,
               static_cast<const int32_t*>(meta)};
 }
 
+// K4's blocks an SM for `smem` bytes of dynamic shared memory (at most 32
+// KB): K3's grid where the SM holds it.  Asked of the CUDA runtime once
+// per device and KB of shared memory (rounded up), then kept, so that a
+// launch asks nothing; 0 when the SM holds no block.
+int support_blocks_per_sm(int device, size_t smem) {
+  constexpr int kDevices = 64;
+  constexpr int kKb = (kSharedBins * 4 + 1023) / 1024 + 1;
+  static std::atomic<int> known[kDevices][kKb];  // blocks + 1; 0: not asked
+  const int kb = static_cast<int>((smem + 1023) / 1024);
+  const auto ask = [&] {
+    return std::min(kBlocksPerSm,
+                    coral::resident_blocks(pair6_support_kernel, kThreads,
+                                           static_cast<size_t>(kb) * 1024));
+  };
+  if (device < 0 || device >= kDevices || kb >= kKb) return ask();
+  int v = known[device][kb].load(std::memory_order_relaxed);
+  if (v == 0) {
+    v = ask() + 1;
+    known[device][kb].store(v, std::memory_order_relaxed);
+  }
+  return v - 1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -297,12 +329,7 @@ int coral_pair6_support(const void* ic, const void* is, const void* ie,
   const size_t smem =
       static_cast<size_t>(n_int <= kSharedBins ? n_int : 2 * kCacheSlots) *
       sizeof(int32_t);
-  // K3's grid where the SM holds that many blocks (it does at every n_int:
-  // at most 40 KB a block)
-  const char* cap_env = getenv("CORAL_K4_BLOCKS_PER_SM");
-  const int cap = cap_env ? atoi(cap_env) : kBlocksPerSm;
-  const int per_sm = std::min(
-      cap, coral::resident_blocks(pair6_support_kernel, kThreads, smem));
+  const int per_sm = support_blocks_per_sm(device, smem);
   pair6_support_kernel<<<grid_for(n, device, std::max(per_sm, 1)), kThreads,
                          smem,
                          static_cast<cudaStream_t>(stream)>>>(

@@ -82,9 +82,9 @@ def load() -> ctypes.CDLL:
     lib.coral_pair6_support.restype = i
     lib.coral_stream_control.argtypes = [p, p, p, p, ll, i, p]
     lib.coral_stream_control.restype = i
-    lib.coral_bin_overlap.argtypes = [p, p, p, p, ll, ll, ll] + [i] * 7 + [p]
+    lib.coral_bin_overlap.argtypes = [p, p, p, ll, ll, ll] + [i] * 5 + [p]
     lib.coral_bin_overlap.restype = i
-    lib.coral_bin_overlap_plan.argtypes = [ll, i, i, i,
+    lib.coral_bin_overlap_plan.argtypes = [ll, i, i,
                                            ctypes.POINTER(ctypes.c_int)]
     lib.coral_bin_overlap_plan.restype = i
     lib.coral_match_matrix.argtypes = [p, p, p, i, i, i, p]

@@ -17,9 +17,9 @@ thousands; K4 counts its hits on the SM at any number of intervals (every
 bin in shared memory up to 8190, a cache of 2048 bins above).  K8
 (aligned bases per genome bin) streams 8 B per read and makes at most four
 updates a read, merged per lane and per warp, in shared-memory tiles of
-the bins or in device memory (:func:`bin_overlap_plan`); K9 (the match
-matrix of a clustering group) writes one byte per cell for about nine
-integer operations.
+the bins (:func:`bin_overlap_plan`); K9 (the match matrix of a
+clustering group) writes one byte per cell for about nine integer
+operations.
 """
 from __future__ import annotations
 
@@ -332,45 +332,28 @@ def bin_overlap_torch(starts, ends, origin: int, bin_size: int, n_bins: int):
     return out + bin_size * counts.cumsum(0)
 
 
-# the routes of K8 (csrc/bins.cu, plan_for); "auto" lets the kernel's rule
-# choose
-_BIN_ROUTES = ("auto", "shared", "global")
-
-
-def _bin_route(route: str) -> int:
-    if route not in _BIN_ROUTES:
-        raise ValueError(f"route={route!r}: one of {_BIN_ROUTES}")
-    return _BIN_ROUTES.index(route) - 1
-
-
 @functools.lru_cache(maxsize=256)
-def _bin_plan(device: int, n: int, n_bins: int, want: int):
+def _bin_plan(device: int, n: int, n_bins: int):
     from . import _build
 
     lib = _build.load()
-    plan = (ctypes.c_int * 5)()
-    rc = lib.coral_bin_overlap_plan(n, n_bins, want, device, plan)
+    plan = (ctypes.c_int * 3)()
+    rc = lib.coral_bin_overlap_plan(n, n_bins, device, plan)
     _build.check(lib, rc, "bin_overlap plan")
     return tuple(plan)
 
 
-def bin_overlap_plan(n: int, n_bins: int, device, route: str = "auto"):
+def bin_overlap_plan(n: int, n_bins: int, device):
     """How K8 runs ``n`` reads over ``n_bins`` bins on the CUDA ``device``:
-    ``{"route": "shared" or "global", "tiles", "tile", "blocks",
-    "threads"}`` (tiles of ``tile`` bins, each taken by ``blocks`` blocks of
-    ``threads``, on the shared route; on the global route one tile of every
-    bin).  ``route`` other than "auto"
-    forces a route, as it does for :func:`bin_overlap`.  Asked of the
-    driver once per device and sizes, then kept."""
-    route_, tiles, tile, blocks, threads = _bin_plan(
-        torch.device(device).index or 0, int(n), int(n_bins),
-        _bin_route(route))
-    return {"route": ("shared", "global")[route_], "tiles": tiles,
-            "tile": tile, "blocks": blocks, "threads": threads}
+    ``{"tiles", "tile", "blocks"}``, tiles of ``tile`` bins in shared
+    memory, each taken by ``blocks`` blocks of 1024 threads.  Asked of the
+    CUDA runtime once per device and sizes, then kept."""
+    tiles, tile, blocks = _bin_plan(torch.device(device).index or 0, int(n),
+                                    int(n_bins))
+    return {"tiles": tiles, "tile": tile, "blocks": blocks}
 
 
-def bin_overlap(starts, ends, origin: int, bin_size: int, n_bins: int, *,
-                route: str = "auto"):
+def bin_overlap(starts, ends, origin: int, bin_size: int, n_bins: int):
     """K8 (replaces ``_bin_kernel``): aligned bases per genome bin.  For
     int32 reads ``[starts, ends)`` and the ``n_bins`` contiguous bins of
     ``bin_size`` from ``origin``, ``out[b] = sum(max(min(e, hi_b) -
@@ -380,10 +363,8 @@ def bin_overlap(starts, ends, origin: int, bin_size: int, n_bins: int, *,
     A read costs at most four updates however many bins it spans: its
     overlaps with its first and last bin, and a difference array of counts
     for the whole bins between them, scanned at the end.  The kernel keeps
-    the sums in shared memory, in tiles of the bins, or in device memory
-    with a second scan kernel, by the rule of ``csrc/bins.cu``
-    (:func:`bin_overlap_plan`); ``route`` "shared" or "global" forces one,
-    for tests and measurements.  One call counts one launch.
+    the sums in shared memory, in tiles of the bins
+    (:func:`bin_overlap_plan`).  One call is one launch.
 
     Edges and sums are int64.  The TPU kernel casts the edges to int32 and
     sums in int32, so the two agree wherever neither of those wraps; this
@@ -392,19 +373,14 @@ def bin_overlap(starts, ends, origin: int, bin_size: int, n_bins: int, *,
     n = _check_cols("starts, ends", starts, ends)
     origin, bin_size, n_bins = int(origin), int(bin_size), int(n_bins)
     _check_bins(origin, bin_size, n_bins)
-    want = _bin_route(route)
     if starts.device.type == "cpu":
         return bin_overlap_torch(starts, ends, origin, bin_size, n_bins)
     out = torch.zeros(n_bins, dtype=torch.int64, device=starts.device)
     if n == 0:
         return out
-    plan = _bin_plan(starts.device.index or 0, n, n_bins, want)
-    counts = None if plan[0] == 0 else \
-        torch.zeros(n_bins, dtype=torch.int32, device=starts.device)
     _launch("bin_overlap", "coral_bin_overlap", starts,
-            starts.data_ptr(), ends.data_ptr(), out.data_ptr(),
-            None if counts is None else counts.data_ptr(), n, origin,
-            bin_size, n_bins, *plan)
+            starts.data_ptr(), ends.data_ptr(), out.data_ptr(), n, origin,
+            bin_size, n_bins, *_bin_plan(starts.device.index or 0, n, n_bins))
     return out
 
 

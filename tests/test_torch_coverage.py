@@ -83,17 +83,31 @@ def _spans_case(kind):
     if kind == "one_base_bins":
         s = rng.integers(-20, 160, 2000)
         return s, s + rng.integers(0, 40, 2000), 0, 1, 150
+    if kind == "clipped_both_ends":
+        # reads that start before the first edge, end past the last, or
+        # both (every bin whole), among empty and reversed reads
+        s = rng.integers(-50_000, 150_000, 2000)
+        e = s + rng.integers(-500, 200_000, 2000)
+        return s, e, 20_000, 3_000, 30
+    if kind == "few_reads_many_bins":
+        # a handful of reads each spanning a hundred bins or more: long
+        # runs of the difference array, partials at both ends
+        s = rng.integers(0, 1_000, 7)
+        return s, s + rng.integers(5_000, 9_000, 7), 0, 43, 200
     s = np.sort(rng.integers(0, 400_000, 3000))     # sorted by start
     return s, s + rng.integers(100, 25_000, 3000), 0, 7_000, 60
 
 
 @pytest.mark.parametrize("kind", ["three_or_more_bins", "on_edges",
-                                  "one_base_bins", "sorted"])
+                                  "one_base_bins", "sorted",
+                                  "clipped_both_ends", "few_reads_many_bins"])
 def test_bin_overlap_plain_decomposition(kind):
     """The plain version's partials + difference array of counts + cumsum
     against the Pallas kernel (interpret mode) and a bin-at-a-time numpy
     sum, where a read spans three or more bins, starts or ends on an edge,
-    where bins are one base, and over reads sorted by start."""
+    where bins are one base, over reads sorted by start, where reads
+    reach past both ends of the binned range, and where a few reads span
+    a hundred bins or more each."""
     from coral_tpu.ops.pallas_kernels import bin_coverage_pallas
 
     starts, ends, origin, bin_size, n_bins = _spans_case(kind)
@@ -210,12 +224,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("order", ["random", "sorted"])
 @pytest.mark.parametrize("origin,bin_size,n_bins", BINNINGS + [
-    (0, 1, 100_000),          # past the shared-memory bins, a bin a base
-    (0, 300, 5_000),          # past the shared-memory bins
+    (0, 1, 100_000),          # past one shared-memory tile, a bin a base
+    (0, 300, 5_000),
     (-2**31, 2**20, 4096)])   # all of int32, a 64-bit division
-def test_cuda_bin_overlap_equals_plain(cuda_device, origin, bin_size, n_bins):
+def test_cuda_bin_overlap_equals_plain(cuda_device, origin, bin_size, n_bins,
+                                       order):
     starts, ends = _reads(n=200_003, seed=7)
+    if order == "sorted":
+        idx = np.argsort(starts, kind="stable")
+        starts, ends = starts[idx], ends[idx]
     starts[:5], ends[:5] = [-2**31, -5, 0, 2**31 - 10, 100], \
         [2**31 - 1, 2**31 - 1, 1_000_000, 2**31 - 1, 50]
     s = torch.from_numpy(starts.astype(np.int32)).to(cuda_device)
@@ -240,28 +259,13 @@ def test_cuda_bin_overlap_equals_plain(cuda_device, origin, bin_size, n_bins):
                      device=cuda_device))
 
 
-def test_bin_overlap_route_names():
-    """``route`` names a route of the kernel or "auto"; on the CPU every
-    route is the plain version."""
-    starts, ends = _reads(n=500)
-    s = torch.from_numpy(starts.astype(np.int32))
-    e = torch.from_numpy(ends.astype(np.int32))
-    want = kernels.bin_overlap_torch(s, e, 0, 10_000, 100)
-    for route in ("auto", "shared", "global"):
-        assert torch.equal(kernels.bin_overlap(s, e, 0, 10_000, 100,
-                                               route=route), want)
-    with pytest.raises(ValueError, match="route"):
-        kernels.bin_overlap(s, e, 0, 10_000, 100, route="tiled")
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("order", ["random", "sorted"])
-@pytest.mark.parametrize("route", ["auto", "shared", "global"])
-def test_cuda_bin_overlap_route_switches(cuda_device, route, order):
-    """K8 on each route at n_bins either side of each switch of its plan on
-    this card (the bins leave one shared-memory tile; the rule turns to the
-    global route), and at one bin and 2^20 bins, over random reads and
-    reads sorted by start (where a warp's lanes share a bin)."""
+def test_cuda_bin_overlap_route_switches(cuda_device, order):
+    """K8 at n_bins at and either side of the switch of its plan on this
+    card (the bins leave one shared-memory tile), and at one bin and 2^20
+    bins (37 tiles), over random reads and reads sorted by start (where a
+    warp's lanes share a bin and a block reaches few bins)."""
     from chip_smoke import bin_switches
 
     starts, ends = _reads(n=200_003, seed=9, span=3_000_000)
@@ -271,14 +275,14 @@ def test_cuda_bin_overlap_route_switches(cuda_device, route, order):
     s = torch.from_numpy(starts.astype(np.int32)).to(cuda_device)
     e = torch.from_numpy(ends.astype(np.int32)).to(cuda_device)
     switches = bin_switches(kernels, len(starts))
-    assert len(switches) >= 2
+    plans = [kernels.bin_overlap_plan(len(starts), n, cuda_device)
+             for n in switches]
+    assert [p["tiles"] for p in plans] == [1, 2, 2]
     for n_bins in (1, *switches, 1 << 20):
         bin_size = max(1, 3_100_000 // n_bins)
-        plan = kernels.bin_overlap_plan(len(starts), n_bins, cuda_device,
-                                        route)
-        assert route == "auto" or plan["route"] == route
+        plan = kernels.bin_overlap_plan(len(starts), n_bins, cuda_device)
         before = kernels.LAUNCHES["bin_overlap"]
-        got = kernels.bin_overlap(s, e, 0, bin_size, n_bins, route=route)
+        got = kernels.bin_overlap(s, e, 0, bin_size, n_bins)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["bin_overlap"] == before + 1
         want = kernels.bin_overlap_torch(s, e, 0, bin_size, n_bins)

@@ -213,12 +213,19 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_int", [1, 16, 511, 512, 513, 8190, 8200])
-def test_cuda_pair6_kernels_equal_plain(cuda_device, n_int):
+@pytest.mark.parametrize("n_int,hot,n", [
+    (1, False, N * 40 + 3), (16, False, N * 40 + 3), (511, False, N * 40 + 3),
+    (512, False, N * 40 + 3), (513, False, N * 40 + 3),
+    (8190, False, N * 40 + 3), (8200, False, N * 40 + 3),
+    (8200, True, N * 40 + 3), (16, False, 1001), (8200, True, 1001)])
+def test_cuda_pair6_kernels_equal_plain(cuda_device, n_int, hot, n):
     """K3 and K4 on the card: around the 512-interval tile, at K4's switch
-    from shared-memory bins to global atomics (8190 / 8200), and with a
-    last block that is not full."""
-    ints, packed = dense_case6(N * 40 + 3, n_int, seed=n_int)
+    from shared-memory bins to its cache of bins (8190 / 8200), with every
+    hit on a few intervals whose cache slots collide (``hot``), with a
+    last block that is not full, and on a batch of 1,001 pairs (four
+    blocks)."""
+    ints, packed = dense_case6(n, n_int, seed=19 if hot else n_int,
+                               hot=HOT_WINDOWS if hot else None)
     st = state_from_numpy(*ints, packed, device=cuda_device)
     args = (st.int_chrom, st.int_start, st.int_end, *st.packed)
     launches = dict(kernels.LAUNCHES)
