@@ -11,10 +11,14 @@ exits non-zero:
    (required);
 2. build: the CUDA kernels of ``coral_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version, bit for bit, with CUDA
-   event timings: K1, K2 and the copy control K7 over the v3 layout and
-   K5, K6 over the v2 layout at 2^21 pairs and 16 intervals (also against
-   numpy; K5 and K6 against K1 and K2 on the same pairs), K3 and K4 over
-   the 6-column layout at 2^21 pairs with 16 and with 8,200 intervals (and
+   event timings: K2 and K6 on pairs whose gates come in BAM order (runs
+   of one interval), on pairs whose hits all fall on one interval and at
+   8,190 intervals, each beside K1, K5 and K7 on the same columns, then
+   three back-to-back calls of each and both on two streams at once; K1,
+   K2 and the copy control K7 over the v3 layout and K5, K6 over the v2
+   layout at 2^21 pairs and 16 intervals (also against numpy; K5 and K6
+   against K1 and K2 on the same pairs), K3 and K4 over the 6-column
+   layout at 2^21 pairs with 16 and with 8,200 intervals (and
    K4 ÷ K3), once with every hit on 14 intervals whose slots in K4's bin
    cache collide, K8 at 2^21 reads over 256 and over 65,536 bins, at
    n_bins either side of each switch of its plan on this card, and over
@@ -77,6 +81,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_PAIRS = 1 << 21
 N_INT = 16
 N_INT_LONG = 8200
+N_SUPPORT_BINS = 8190     # the resolved layouts' limit (K2, K6)
 N_DECOYS = 8190
 # K4 above 8190 intervals keeps a direct-mapped cache of 2048 bins (slot =
 # bin % 2048, csrc/pair6.cu): these windows and the last interval (8199,
@@ -451,6 +456,25 @@ def v2_to_v3(packed2, min_mapq: int):
     return [qgap, grr.astype(np.int32), meta3.astype(np.int32)]
 
 
+def ordered_case2(n: int, n_int: int, kind: str, seed: int):
+    """``dense_case2``'s pairs with their gates laid out as the support
+    kernels meet them on the main path: "BAM order", runs of 20 to 400
+    pairs on one gate (no interval, or one of ``n_int``), as pairs of a
+    coordinate-sorted BAM come; "one interval", every gate interval 0, so
+    every hit falls on one bin."""
+    cols = dense_case2(n, n_int, seed)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "BAM order":
+        k = n // 20 + 1
+        gate = np.repeat(rng.integers(-1, n_int, k),
+                         rng.integers(20, 400, k))[:n]
+    else:
+        gate = np.zeros(n, np.int64)
+    cols[3] = ((cols[3] & ((1 << 18) - 1)) | ((gate + 1) << 18)) \
+        .astype(np.int32)
+    return cols
+
+
 def synth_reads(n_reads: int, seed: int = 1):
     """The coverage benchmark's reads (``tools/bench_kernels.py``,
     ``bench_coverage_bins``): int32 spans of 1 to 60 kb over 200 Mb."""
@@ -699,7 +723,8 @@ def _check_v3(kernels, case, packed, report):
               f"K7==plain==numpy", report)
     log(f"[3 kernels] v3 {case}: K1/K7 "
         f"{ms['pair3'] / ms['stream_control']:.3f} K2/K7 "
-        f"{ms['pair3_support'] / ms['stream_control']:.3f}")
+        f"{ms['pair3_support'] / ms['stream_control']:.3f} K2/K1 "
+        f"{ms['pair3_support'] / ms['pair3']:.3f}")
 
 
 def check_v2(kernels, case, packed, n_int, report, tag="3 kernels"):
@@ -753,7 +778,86 @@ def check_v2(kernels, case, packed, n_int, report, tag="3 kernels"):
         report[name].append(r)
     _log_rows(tag, f"v2 {what}: hits={int(hit.sum())} K5==plain==numpy==K1 "
               f"K6==plain==K2", rep)
+    log(f"[{tag}] v2 {case}: K6/K5 "
+        f"{rep['pair2_support']['ms'] / rep['pair2']['ms']:.3f}")
     return hit
+
+
+def check_support(kernels, case, packed2, n_int, report):
+    """K6 and K2 against their plain versions on one v2 case and its v3
+    twin, with K5, K1 and K7 timed on the same columns as the sticks they
+    are read against; fills ``report`` (K2, K6)."""
+    import torch
+
+    cols = [torch.from_numpy(c).cuda() for c in packed2]
+    cols3 = [torch.from_numpy(c).cuda() for c in v2_to_v3(packed2, MIN_MAPQ)]
+    sargs = (*cols, n_int, CUTOFF, MIN_MAPQ, GAP)
+    n = len(packed2[0])
+    sup6 = kernels.pair2_support(*sargs)
+    sup2 = kernels.pair3_support(*cols3, n_int, CUTOFF, GAP)
+    want = kernels.pair2_support_torch(*sargs)
+    torch.cuda.synchronize()
+    require(torch.equal(sup6, want), f"K6 != plain ({case})")
+    require(torch.equal(sup2, want), f"K2 != plain ({case})")
+    what = f"{case}, {n} pairs, {n_int} intervals"
+    rep = {
+        "pair3_support": _row(
+            what, int((sup2.long() - want.long()).abs().max()),
+            lambda: kernels.pair3_support(*cols3, n_int, CUTOFF, GAP),
+            lambda: kernels.pair3_support_torch(*cols3, n_int, CUTOFF, GAP),
+            bound_v3(n, 4 * n_int)),
+        "pair2_support": _row(
+            what, int((sup6.long() - want.long()).abs().max()),
+            lambda: kernels.pair2_support(*sargs),
+            lambda: kernels.pair2_support_torch(*sargs),
+            bound_v2(n, 4 * n_int))}
+    for name, r in rep.items():
+        report[name].append(r)
+    ms = {"K1": cuda_ms(lambda: kernels.pair3_hitmask(*cols3, CUTOFF, GAP)),
+          "K7": cuda_ms(lambda: kernels.stream_control(*cols3)),
+          "K5": cuda_ms(lambda: kernels.pair2_hitmask(*cols, CUTOFF,
+                                                      MIN_MAPQ, GAP))}
+    k2, k6 = rep["pair3_support"]["ms"], rep["pair2_support"]["ms"]
+    _log_rows("3 kernels", f"support {what}: hits={int(want.sum())} bins "
+              f"hit={int((want > 0).sum())} K2==K6==plain", rep)
+    log(f"[3 kernels] support {case}: ms K1 {ms['K1']:.4f} K5 "
+        f"{ms['K5']:.4f} K7 {ms['K7']:.4f}; K2/K1 {k2 / ms['K1']:.3f} "
+        f"K2/K7 {k2 / ms['K7']:.3f} K6/K5 {k6 / ms['K5']:.3f}")
+
+
+def check_support_streams(kernels, packed2):
+    """K2 and K6 three times back to back, then on two streams at once:
+    every call equals the plain version (each output is zeroed on its
+    call's stream, into memory the caching allocator hands back as it
+    was)."""
+    import torch
+
+    cols = [torch.from_numpy(c).cuda() for c in packed2]
+    cols3 = [torch.from_numpy(c).cuda() for c in v2_to_v3(packed2, MIN_MAPQ)]
+    wants = {k: kernels.pair2_support_torch(*cols, k, CUTOFF, MIN_MAPQ, GAP)
+             for k in (N_INT, N_SUPPORT_BINS)}
+    calls = {"K2": lambda k: kernels.pair3_support(*cols3, k, CUTOFF, GAP),
+             "K6": lambda k: kernels.pair2_support(*cols, k, CUTOFF,
+                                                   MIN_MAPQ, GAP)}
+    got = [(name, k, call(k)) for name, call in calls.items()
+           for k in (N_INT,) * 3 + (N_SUPPORT_BINS,) * 3]
+    torch.cuda.synchronize()
+    for name, k, g in got:
+        require(torch.equal(g, wants[k]),
+                f"{name} back to back, {k} intervals != plain")
+    streams = [torch.cuda.Stream() for _ in calls]
+    got = []
+    for _ in range(3):
+        for st, (name, call) in zip(streams, calls.items()):
+            with torch.cuda.stream(st):
+                got.append((name, call(N_INT)))
+    torch.cuda.synchronize()
+    for name, g in got:
+        require(torch.equal(g, wants[N_INT]), f"{name} on two streams "
+                "!= plain")
+    log(f"[3 kernels] support: K2, K6 x3 back to back at {N_INT} and "
+        f"{N_SUPPORT_BINS} intervals, then K2 and K6 on two streams at once "
+        f"x3: all == plain")
 
 
 def check_bins(kernels, case, starts, ends, origin, bin_size, n_bins, report,
@@ -897,6 +1001,18 @@ def phase_kernels() -> dict:
         for name, r in rep.items():
             reports[name].append(r)
 
+    # K2 and K6 where the main path's gates put them, and at the layouts'
+    # limit; before the cases whose rows the result line carries
+    for case, n_int, packed2 in (
+            ("BAM order", N_INT,
+             ordered_case2(N_PAIRS, N_INT, "BAM order", seed=29)),
+            ("one interval", N_INT,
+             ordered_case2(N_PAIRS, N_INT, "one interval", seed=31)),
+            ("dense", N_SUPPORT_BINS,
+             dense_case2(N_PAIRS, N_SUPPORT_BINS, seed=37))):
+        check_support(kernels, case, packed2, n_int, reports)
+    check_support_streams(kernels, dense_case2(N_PAIRS, N_SUPPORT_BINS,
+                                               seed=41))
     for case, packed in (("bench", bench3),
                          ("dense", dense_case(N_PAIRS, N_INT, seed=7))):
         rep = {}
@@ -1128,7 +1244,8 @@ def phase_main_path(work: str):
     log(f"[4a wgs] K1, K2, K7 == plain at the main path's shape "
         f"({len(cols[0])} pairs, {len(ic)} intervals); ms K1 {ms['K1']:.4f} "
         f"K2 {ms['K2']:.4f} K7 {ms['K7']:.4f}; K1/K7 "
-        f"{ms['K1'] / ms['K7']:.3f} K2/K7 {ms['K2'] / ms['K7']:.3f}")
+        f"{ms['K1'] / ms['K7']:.3f} K2/K7 {ms['K2'] / ms['K7']:.3f} K2/K1 "
+        f"{ms['K2'] / ms['K1']:.3f}")
     log(f"[4a wgs] launches in the main path's run: {launches}")
     scoring = dict(table=table, pi=pi, starts=starts, ends=ends, span=span,
                    hit_v3=hit_k.cpu().numpy(), support_v3=support, cov_v3=cov)

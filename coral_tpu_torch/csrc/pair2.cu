@@ -109,67 +109,25 @@ pair2_hitmask_kernel(const int32_t* __restrict__ qgap,
 // K6: K5 fused with the per-interval support histogram of
 // hit & (iog == k), k < n_int.  Replaces _pair_hist2_kernel
 // (coral_tpu/ops/pallas_kernels.py:282).  The TPU kernel carries its
-// counts in VMEM across a sequential grid and loops over the bins; here,
-// as in K2, a block counts into a shared-memory histogram (n_int <= 8190
-// bins = 32 KB) and then adds each non-zero bin into the output with one
-// global atomic, and, as in K4, a warp issues one shared-memory atomic per
-// distinct bin among its lanes.  For that the loops below run a
-// warp-uniform number of steps: a lane past the end carries no pair and
-// counts nothing.  A gate index past n_int is dropped, as the TPU kernel's
-// range(n_int) loop drops it.  Integer adds commute, so the counts are
-// exact whatever the order.  `out` is zeroed by the caller.
+// counts in VMEM across a sequential grid and loops over the bins; here
+// the body is K2's, coral::support_body (pair_common.cuh): counts in
+// shared memory, added into `out` once a block is done, after the entry's
+// memset.  A gate index past n_int is dropped, as the TPU kernel's
+// range(n_int) loop drops it.
+struct Pair2Bin {
+  int32_t cutoff;
+  int32_t min_mapq;
+  float gap;
+  __device__ __forceinline__ int32_t operator()(const int32_t* p) const {
+    return pair2_bin(p[0], p[1], p[2], p[3], cutoff, min_mapq, gap);
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
-pair2_support_kernel(const int32_t* __restrict__ qgap,
-                     const int32_t* __restrict__ r2_i,
-                     const int32_t* __restrict__ r1_j,
-                     const int32_t* __restrict__ meta, int64_t n,
-                     int32_t n_int, int32_t cutoff, int32_t min_mapq,
-                     float gap, int vec, int32_t* __restrict__ out) {
+pair2_support_kernel(coral::Columns<4> cols, int64_t n, int32_t n_int,
+                     Pair2Bin bin, int vec, int32_t* __restrict__ out) {
   extern __shared__ int32_t hist[];
-  for (int b = threadIdx.x; b < n_int; b += blockDim.x) hist[b] = 0;
-  __syncthreads();
-  const uint32_t bins = static_cast<uint32_t>(n_int);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x;
-  int64_t done = 0;
-  if (vec) {
-    const int64_t n4 = n >> 2;
-    const int4* q4 = reinterpret_cast<const int4*>(qgap);
-    const int4* a4 = reinterpret_cast<const int4*>(r2_i);
-    const int4* b4 = reinterpret_cast<const int4*>(r1_j);
-    const int4* m4 = reinterpret_cast<const int4*>(meta);
-    for (int64_t base = first; base < n4; base += stride) {
-      const int64_t i = base + threadIdx.x;
-      int32_t b0 = -1, b1 = -1, b2 = -1, b3 = -1;
-      if (i < n4) {
-        const int4 q = q4[i];
-        const int4 a = a4[i];
-        const int4 b = b4[i];
-        const int4 m = m4[i];
-        b0 = pair2_bin(q.x, a.x, b.x, m.x, cutoff, min_mapq, gap);
-        b1 = pair2_bin(q.y, a.y, b.y, m.y, cutoff, min_mapq, gap);
-        b2 = pair2_bin(q.z, a.z, b.z, m.z, cutoff, min_mapq, gap);
-        b3 = pair2_bin(q.w, a.w, b.w, m.w, cutoff, min_mapq, gap);
-      }
-      coral::warp_count(hist, b0, bins);
-      coral::warp_count(hist, b1, bins);
-      coral::warp_count(hist, b2, bins);
-      coral::warp_count(hist, b3, bins);
-    }
-    done = n4 << 2;
-  }
-  for (int64_t base = done + first; base < n; base += stride) {
-    const int64_t i = base + threadIdx.x;
-    const int32_t b = i < n ? pair2_bin(qgap[i], r2_i[i], r1_j[i], meta[i],
-                                        cutoff, min_mapq, gap)
-                            : -1;
-    coral::warp_count(hist, b, bins);
-  }
-  __syncthreads();
-  for (int b = threadIdx.x; b < n_int; b += blockDim.x) {
-    const int32_t c = hist[b];
-    if (c) atomicAdd(&out[b], c);
-  }
+  coral::support_body(cols, n, n_int, vec, bin, hist, out);
 }
 
 }  // namespace
@@ -202,17 +160,26 @@ int coral_pair2_support(const void* qgap, const void* r2_i, const void* r1_j,
                         const void* meta, void* out, long long n, int n_int,
                         int cutoff, int min_mapq, float gap, int device,
                         void* stream) {
+  if (n < 0 || n_int < 1 || n_int > coral::kSupportBins) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec = aligned(qgap, 16) && aligned(r2_i, 16) &&
                   aligned(r1_j, 16) && aligned(meta, 16);
-  const int blocks = grid_for(vec ? (n + 3) / 4 : n, device, 4);
-  const size_t smem = static_cast<size_t>(n_int) * sizeof(int32_t);
-  pair2_support_kernel<<<blocks, kThreads, smem,
+  // `out`, and the shared-memory histogram of a block
+  const size_t bytes = static_cast<size_t>(n_int) * sizeof(int32_t);
+  err = cudaMemsetAsync(out, 0, bytes, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pair2_support_kernel<<<coral::support_grid(n, n_int, vec, device),
+                         kThreads, bytes,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(qgap), static_cast<const int32_t*>(r2_i),
-      static_cast<const int32_t*>(r1_j), static_cast<const int32_t*>(meta),
-      n, n_int, cutoff, min_mapq, gap, vec, static_cast<int32_t*>(out));
+      coral::Columns<4>{{static_cast<const int32_t*>(qgap),
+                         static_cast<const int32_t*>(r2_i),
+                         static_cast<const int32_t*>(r1_j),
+                         static_cast<const int32_t*>(meta)}},
+      n, n_int, Pair2Bin{cutoff, min_mapq, gap}, vec,
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

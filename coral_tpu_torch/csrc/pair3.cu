@@ -74,55 +74,24 @@ pair3_hitmask_kernel(const int32_t* __restrict__ qgap,
 // K2: the predicate fused with the per-interval support histogram.
 // Replaces _pair_hist3_kernel (coral_tpu/ops/pallas_kernels.py:473).  The
 // TPU kernel carries its counts in VMEM across a sequential grid; CUDA
-// blocks run in no order, so each block counts into a shared-memory
-// histogram (n_int <= 8190 bins = 32 KB) and then adds each non-zero bin
-// into the output with one global atomic.  Integer adds commute, so the
-// counts are exact whatever the order.  `out` is zeroed by the caller.
+// blocks run in no order, so the body is coral::support_body
+// (pair_common.cuh, where its design and the numbers that chose it are):
+// counts in shared memory, added into `out` once a block is done, after
+// the entry's memset.  A gate index past n_int is dropped, as the TPU
+// kernel's range(n_int) loop drops it.
+struct Pair3Bin {
+  int32_t cutoff;
+  float gap;
+  __device__ __forceinline__ int32_t operator()(const int32_t* p) const {
+    return pair3_bin(p[0], p[1], p[2], cutoff, gap);
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
-pair3_support_kernel(const int32_t* __restrict__ qgap,
-                     const int32_t* __restrict__ grr,
-                     const int32_t* __restrict__ meta, int64_t n,
-                     int32_t n_int, int32_t cutoff, float gap, int vec,
-                     int32_t* __restrict__ out) {
+pair3_support_kernel(coral::Columns<3> cols, int64_t n, int32_t n_int,
+                     Pair3Bin bin, int vec, int32_t* __restrict__ out) {
   extern __shared__ int32_t hist[];
-  for (int b = threadIdx.x; b < n_int; b += blockDim.x) hist[b] = 0;
-  __syncthreads();
-  const uint32_t bins = static_cast<uint32_t>(n_int);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  int64_t done = 0;
-  if (vec) {
-    const int64_t n4 = n >> 2;
-    const int4* q4 = reinterpret_cast<const int4*>(qgap);
-    const int4* g4 = reinterpret_cast<const int4*>(grr);
-    const int4* m4 = reinterpret_cast<const int4*>(meta);
-    for (int64_t i = tid; i < n4; i += stride) {
-      const int4 q = q4[i];
-      const int4 g = g4[i];
-      const int4 m = m4[i];
-      const int32_t b0 = pair3_bin(q.x, g.x, m.x, cutoff, gap);
-      const int32_t b1 = pair3_bin(q.y, g.y, m.y, cutoff, gap);
-      const int32_t b2 = pair3_bin(q.z, g.z, m.z, cutoff, gap);
-      const int32_t b3 = pair3_bin(q.w, g.w, m.w, cutoff, gap);
-      // a miss is -1, which is out of range as unsigned, as is a gate
-      // index past the table (the TPU kernel drops both)
-      if (static_cast<uint32_t>(b0) < bins) atomicAdd(&hist[b0], 1);
-      if (static_cast<uint32_t>(b1) < bins) atomicAdd(&hist[b1], 1);
-      if (static_cast<uint32_t>(b2) < bins) atomicAdd(&hist[b2], 1);
-      if (static_cast<uint32_t>(b3) < bins) atomicAdd(&hist[b3], 1);
-    }
-    done = n4 << 2;
-  }
-  for (int64_t i = done + tid; i < n; i += stride) {
-    const int32_t b = pair3_bin(qgap[i], grr[i], meta[i], cutoff, gap);
-    if (static_cast<uint32_t>(b) < bins) atomicAdd(&hist[b], 1);
-  }
-  __syncthreads();
-  for (int b = threadIdx.x; b < n_int; b += blockDim.x) {
-    const int32_t c = hist[b];
-    if (c) atomicAdd(&out[b], c);
-  }
+  coral::support_body(cols, n, n_int, vec, bin, hist, out);
 }
 
 // K7: the zero-compute copy control.  Replaces _stream_control_kernel
@@ -189,16 +158,23 @@ int coral_pair3_hitmask(const void* qgap, const void* grr, const void* meta,
 int coral_pair3_support(const void* qgap, const void* grr, const void* meta,
                         void* out, long long n, int n_int, int cutoff,
                         float gap, int device, void* stream) {
+  if (n < 0 || n_int < 1 || n_int > coral::kSupportBins) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec = aligned(qgap, 16) && aligned(grr, 16) && aligned(meta, 16);
-  const int blocks = grid_for(vec ? (n + 3) / 4 : n, device, 4);
-  const size_t smem = static_cast<size_t>(n_int) * sizeof(int32_t);
-  pair3_support_kernel<<<blocks, kThreads, smem,
+  // `out`, and the shared-memory histogram of a block
+  const size_t bytes = static_cast<size_t>(n_int) * sizeof(int32_t);
+  err = cudaMemsetAsync(out, 0, bytes, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pair3_support_kernel<<<coral::support_grid(n, n_int, vec, device),
+                         kThreads, bytes,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(qgap), static_cast<const int32_t*>(grr),
-      static_cast<const int32_t*>(meta), n, n_int, cutoff, gap, vec,
-      static_cast<int32_t*>(out));
+      coral::Columns<3>{{static_cast<const int32_t*>(qgap),
+                         static_cast<const int32_t*>(grr),
+                         static_cast<const int32_t*>(meta)}},
+      n, n_int, Pair3Bin{cutoff, gap}, vec, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

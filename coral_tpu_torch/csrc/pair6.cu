@@ -171,26 +171,6 @@ pair6_hitmask_kernel(Table tb, Cols c, uint8_t* __restrict__ hit,
   }
 }
 
-// One histogram step of K4's warp: every lane brings a bin (-1: none).
-// When every lane that has a bin has the same one, as neighbouring pairs
-// mostly do, the first of them adds their number with two ballots and a
-// shuffle; otherwise coral::warp_count_with groups the lanes by bin
-// (__match_any_sync, which costs more).  All 32 lanes call it together.
-template <typename Add>
-__device__ __forceinline__ void count_step(int32_t bin, uint32_t bins,
-                                           Add add) {
-  const int32_t b = static_cast<uint32_t>(bin) < bins ? bin : -1;
-  const unsigned has = __ballot_sync(0xFFFFFFFFu, b >= 0);
-  if (has == 0) return;
-  const int first = __ffs(has) - 1;
-  const int32_t b_first = __shfl_sync(0xFFFFFFFFu, b, first);
-  if (__ballot_sync(0xFFFFFFFFu, b == b_first) == has) {
-    if ((threadIdx.x & 31) == first) add(b_first, __popc(has));
-    return;
-  }
-  coral::warp_count_with(b, bins, add);
-}
-
 // K4: K3 fused with the per-interval support histogram of
 // hit & (io_i == k).  Replaces _pair_hist_kernel
 // (coral_tpu/ops/pallas_kernels.py:659).  The TPU kernel adds each grid
@@ -233,10 +213,10 @@ pair6_support_kernel(Table tb, Cols c, int64_t n, int32_t cutoff,
     // all 32 lanes are here together: pair6_decide ends on a barrier, and
     // `exact` is the same in the whole block
     if (exact) {
-      count_step(h ? io_i : -1, bins,
-                 [&](int32_t b, int32_t k) { atomicAdd(&hist[b], k); });
+      coral::count_step(h ? io_i : -1, bins,
+                        [&](int32_t b, int32_t k) { atomicAdd(&hist[b], k); });
     } else {
-      count_step(h ? io_i : -1, bins, [&](int32_t b, int32_t k) {
+      coral::count_step(h ? io_i : -1, bins, [&](int32_t b, int32_t k) {
         const int32_t s = b & (kCacheSlots - 1);
         int32_t t = static_cast<volatile int32_t*>(tag)[s];
         if (t < 0) {

@@ -10,7 +10,10 @@ kernel launches, so a run can show that it went through them.
 K1, K2 and K7 stream 12 B per pair of the packed v3 layout
 (:data:`.scoring.PACKED3_COL_ORDER`), K5 and K6 16 B per pair of the v2
 layout (:data:`.scoring.PACKED2_COL_ORDER`); all five are bound by device
-memory bandwidth.  K3 and K4 stream 24 B per pair of the 6-column layout
+memory bandwidth.  K2 and K6 share one body (``csrc/pair_common.cuh``):
+one shared-memory atomic per hit, a block's counts added into the output
+at its end, the output zeroed by a memset on the same stream.  K3 and K4
+stream 24 B per pair of the 6-column layout
 (:data:`.scoring.PACKED_COL_ORDER`) and scan the interval table per pair:
 bound by bandwidth at a handful of intervals and by integer operations at
 thousands; K4 counts its hits on the SM at any number of intervals (every
@@ -106,15 +109,14 @@ def pair3_hitmask(qgap, grr, meta, cutoff: int, gap_: float):
 
 def pair3_support(qgap, grr, meta, n_int: int, cutoff: int, gap_: float):
     """K2 (replaces ``_pair_hist3_kernel``): the v3 predicate fused with
-    the per-interval support histogram, int32 (n_int,)."""
+    the per-interval support histogram, int32 (n_int,).  One call is a
+    memset of the output and one launch, at any ``n`` (0 included)."""
     n = _check_cols("qgap, grr, meta", qgap, grr, meta)
     if not 1 <= n_int <= MAX_PACKED2_INTERVALS:
         raise ValueError(f"n_int={n_int} outside 1..{MAX_PACKED2_INTERVALS}")
     if qgap.device.type == "cpu":
         return pair3_support_torch(qgap, grr, meta, n_int, cutoff, gap_)
-    out = torch.zeros(n_int, dtype=torch.int32, device=qgap.device)
-    if n == 0:
-        return out
+    out = torch.empty(n_int, dtype=torch.int32, device=qgap.device)
     _launch("pair3_support", "coral_pair3_support", qgap,
             qgap.data_ptr(), grr.data_ptr(), meta.data_ptr(), out.data_ptr(),
             n, int(n_int), int(cutoff), float(gap_))
@@ -261,16 +263,15 @@ def pair2_support(qgap, r2_i, r1_j, meta, n_int: int, cutoff: int, min_mapq,
                   gap_: float):
     """K6 (replaces ``_pair_hist2_kernel``): K5 fused with the
     per-interval support histogram of ``hit & (iog == k)``, int32
-    (n_int,)."""
+    (n_int,).  One call is a memset of the output and one launch, as for
+    :func:`pair3_support`."""
     n = _check_cols("qgap, r2_i, r1_j, meta", qgap, r2_i, r1_j, meta)
     if not 1 <= n_int <= MAX_PACKED2_INTERVALS:
         raise ValueError(f"n_int={n_int} outside 1..{MAX_PACKED2_INTERVALS}")
     if qgap.device.type == "cpu":
         return pair2_support_torch(qgap, r2_i, r1_j, meta, n_int, cutoff,
                                    min_mapq, gap_)
-    out = torch.zeros(n_int, dtype=torch.int32, device=qgap.device)
-    if n == 0:
-        return out
+    out = torch.empty(n_int, dtype=torch.int32, device=qgap.device)
     _launch("pair2_support", "coral_pair2_support", qgap,
             qgap.data_ptr(), r2_i.data_ptr(), r1_j.data_ptr(),
             meta.data_ptr(), out.data_ptr(), n, int(n_int), int(cutoff),

@@ -62,6 +62,29 @@ def _case(kind: str, n: int = N, n_int: int = 16, seed: int = 0):
             meta.astype(np.int32)]
 
 
+def _ordered_case(kind: str, n: int = N, n_int: int = 16, seed: int = 0):
+    """The dense case's pairs with gates laid out as the support kernels
+    meet them on the main path.
+
+    bam_order: runs of 20 to 400 pairs share one gate (no interval, or
+    one of ``n_int``), as pairs in BAM order do; one_interval: every gate
+    is interval 0, so every hit falls on one bin; last_bin: gates from
+    ``n_int - 1`` to ``n_int + 2``, so hits fall on the last bin and past
+    the table, where they are dropped."""
+    qgap, grr, meta = _case("dense", n=n, n_int=n_int, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "bam_order":
+        k = n // 20 + 1
+        gate = np.repeat(rng.integers(-1, n_int, k),
+                         rng.integers(20, 400, k))[:n]
+    elif kind == "one_interval":
+        gate = np.zeros(n, np.int64)
+    else:
+        gate = n_int - 1 + rng.integers(0, 4, n)
+    meta = ((gate + 1) << 1) | (meta & 1)
+    return [qgap, grr, meta.astype(np.int32)]
+
+
 def _cpu(cols):
     return [torch.from_numpy(c) for c in cols]
 
@@ -98,6 +121,27 @@ def test_support_plain_equals_pallas(kind, n_int):
     assert got.dtype == torch.int32 and got.shape == (n_int,)
     np.testing.assert_array_equal(got.numpy(), want)
     if kind == "dense":
+        assert want.sum() > 0
+
+
+@pytest.mark.parametrize("n_int", [1, 16])
+@pytest.mark.parametrize("kind", ["bam_order", "one_interval", "last_bin"])
+def test_support_ordered_plain_equals_pallas(kind, n_int):
+    from coral_tpu.ops.pallas_kernels import make_pair_hist3_pallas_fn
+
+    packed = _ordered_case(kind, n_int=n_int)
+    fn = make_pair_hist3_pallas_fn(ROWS, n_int, CUTOFF, GAP, interpret=True)
+    want = np.asarray(fn(*[c.reshape(ROWS, LANES) for c in packed]))[0]
+    got = kernels.pair3_support(*_cpu(packed), n_int, CUTOFF, GAP)
+    np.testing.assert_array_equal(got.numpy(), want)
+    hit, iogm = np_predicate(*packed, CUTOFF, GAP)
+    np.testing.assert_array_equal(
+        want, np.bincount(iogm[hit], minlength=n_int + 4)[:n_int])
+    if kind == "one_interval":
+        assert want[0] == hit.sum() > 0
+    elif kind == "last_bin":
+        assert 0 < want[-1] < hit.sum()
+    else:
         assert want.sum() > 0
 
 
@@ -172,3 +216,76 @@ def test_cuda_kernels_equal_plain(cuda_device, kind):
                        kernels.pair3_hitmask_torch(*off, CUTOFF, GAP))
     assert torch.equal(kernels.pair3_support(*off, 16, CUTOFF, GAP),
                        kernels.pair3_support_torch(*off, 16, CUTOFF, GAP))
+
+
+def _on(device, packed):
+    return [torch.from_numpy(np.ascontiguousarray(c)).to(device)
+            for c in packed]
+
+
+def _support_equal(cols, n_int):
+    got = kernels.pair3_support(*cols, n_int, CUTOFF, GAP)
+    want = kernels.pair3_support_torch(*cols, n_int, CUTOFF, GAP)
+    torch.cuda.synchronize()
+    return torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3])
+def test_cuda_support_few_pairs(cuda_device, n):
+    """A call is one launch at any n (0 included), and every bin of its
+    output is written: an empty allocation is not zero."""
+    cols = _on(cuda_device, _ordered_case("one_interval", n=8, seed=n))
+    cols = [c[:n] for c in cols]
+    launches = kernels.LAUNCHES["pair3_support"]
+    for n_int in (1, 16, 8190):
+        assert _support_equal(cols, n_int)
+    assert kernels.LAUNCHES["pair3_support"] == launches + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_int", [1, 16, 8190])
+def test_cuda_support_bins(cuda_device, n_int):
+    """Every layout of the gates, aligned and as an unaligned view (the
+    scalar loop), at one bin, 16 and the layout's limit."""
+    for kind in ("bam_order", "one_interval", "last_bin"):
+        cols = _on(cuda_device, _ordered_case(kind, n=N * 64 + 3,
+                                              n_int=n_int, seed=n_int))
+        assert _support_equal(cols, n_int), kind
+        assert _support_equal([c[1:] for c in cols], n_int), kind
+    cols = _on(cuda_device, _case("dense", n=N * 64 + 3, n_int=n_int))
+    assert _support_equal(cols, n_int)
+
+
+@pytest.mark.cuda
+def test_cuda_support_repeated_calls(cuda_device):
+    """Back-to-back calls, from the widest table to one bin and back, each
+    into an output the caching allocator hands back unzeroed."""
+    cols = _on(cuda_device, _case("dense", n=N * 512, n_int=8190, seed=5))
+    wants = {k: kernels.pair3_support_torch(*cols, k, CUTOFF, GAP)
+             for k in (8190, 16, 1)}
+    got = [(k, kernels.pair3_support(*cols, k, CUTOFF, GAP))
+           for k in (8190, 8190, 16, 16, 16, 1, 8190)]
+    torch.cuda.synchronize()
+    for k, g in got:
+        assert torch.equal(g, wants[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_support_two_streams(cuda_device):
+    """Two streams at once: each call's zeroing and counts stay on its
+    own stream."""
+    cases = [_on(cuda_device, _ordered_case(kind, n=N * 512, seed=7))
+             for kind in ("bam_order", "last_bin")]
+    wants = [kernels.pair3_support_torch(*c, 16, CUTOFF, GAP) for c in cases]
+    streams = [torch.cuda.Stream(cuda_device) for _ in cases]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(3):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[k].append(kernels.pair3_support(*cases[k], 16, CUTOFF,
+                                                    GAP))
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert all(torch.equal(g, wants[k]) for g in got[k])

@@ -108,6 +108,28 @@ def _case(kind: str, n: int = N, n_int: int = N_INT, seed: int = 0):
     return cols, n
 
 
+def _ordered_case(kind: str, n: int = N, n_int: int = N_INT,
+                  seed: int = 0):
+    """The dense case's pairs with gates laid out as the support kernels
+    meet them on the main path (``tests/test_torch_kernels.py``'s cases of
+    the same names): bam_order, runs of 20 to 400 pairs on one gate;
+    one_interval, every gate interval 0; last_bin, gates from ``n_int -
+    1`` up, past the table (at most 8190, the gate's 13 bits)."""
+    cols, _ = _case("dense", n=n, n_int=n_int, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "bam_order":
+        k = n // 20 + 1
+        gate = np.repeat(rng.integers(-1, n_int, k),
+                         rng.integers(20, 400, k))[:n]
+    elif kind == "one_interval":
+        gate = np.zeros(n, np.int64)
+    else:
+        gate = np.minimum(n_int - 1 + rng.integers(0, 4, n), 8190)
+    cols[3] = ((cols[3] & ((1 << 18) - 1)) | ((gate + 1) << 18)) \
+        .astype(np.int32)
+    return cols
+
+
 def _cpu(cols):
     return [torch.from_numpy(np.ascontiguousarray(c)) for c in cols]
 
@@ -159,6 +181,28 @@ def test_support_plain_equals_pallas(kind, n_int):
     assert got.dtype == torch.int32 and got.shape == (n_int,)
     np.testing.assert_array_equal(got.numpy(), want)
     if kind in ("dense", "native"):
+        assert want.sum() > 0
+
+
+@pytest.mark.parametrize("n_int", [1, N_INT])
+@pytest.mark.parametrize("kind", ["bam_order", "one_interval", "last_bin"])
+def test_support_ordered_plain_equals_pallas(kind, n_int):
+    from coral_tpu.ops.pallas_kernels import make_pair_hist2_pallas_fn
+
+    packed = _ordered_case(kind, n_int=n_int)
+    fn = make_pair_hist2_pallas_fn(ROWS, n_int, CUTOFF, MIN_MAPQ, GAP,
+                                   interpret=True)
+    want = np.asarray(fn(*[c.reshape(ROWS, LANES) for c in packed]))[0]
+    got = kernels.pair2_support(*_cpu(packed), n_int, CUTOFF, MIN_MAPQ, GAP)
+    np.testing.assert_array_equal(got.numpy(), want)
+    hit, iog = ts.pair_predicate_packed2_np(*packed, CUTOFF, MIN_MAPQ, GAP)
+    np.testing.assert_array_equal(
+        want, np.bincount(iog[hit], minlength=n_int + 4)[:n_int])
+    if kind == "one_interval":
+        assert want[0] == hit.sum() > 0
+    elif kind == "last_bin":
+        assert 0 < want[-1] < hit.sum()
+    else:
         assert want.sum() > 0
 
 
@@ -333,3 +377,87 @@ def test_cuda_kernels_equal_plain(cuda_device, kind):
     assert torch.equal(
         kernels.pair2_support(*off, N_INT, CUTOFF, MIN_MAPQ, GAP),
         kernels.pair2_support_torch(*off, N_INT, CUTOFF, MIN_MAPQ, GAP))
+
+
+def _on(device, packed):
+    return [torch.from_numpy(np.ascontiguousarray(c)).to(device)
+            for c in packed]
+
+
+def _support_equal(cols, n_int):
+    got = kernels.pair2_support(*cols, n_int, CUTOFF, MIN_MAPQ, GAP)
+    want = kernels.pair2_support_torch(*cols, n_int, CUTOFF, MIN_MAPQ, GAP)
+    torch.cuda.synchronize()
+    return torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3])
+def test_cuda_support_few_pairs(cuda_device, n):
+    """A call is one launch at any n (0 included), and every bin of its
+    output is written: an empty allocation is not zero."""
+    cols = _on(cuda_device, _ordered_case("one_interval", n=8, seed=n))
+    cols = [c[:n] for c in cols]
+    launches = kernels.LAUNCHES["pair2_support"]
+    for n_int in (1, N_INT, 8190):
+        assert _support_equal(cols, n_int)
+    assert kernels.LAUNCHES["pair2_support"] == launches + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_int", [1, N_INT, 8190])
+def test_cuda_support_bins(cuda_device, n_int):
+    """Every layout of the gates, aligned and as an unaligned view (the
+    scalar loop), at one bin, 16 and the layout's limit."""
+    for kind in ("bam_order", "one_interval", "last_bin"):
+        cols = _on(cuda_device, _ordered_case(kind, n=N * 64 + 3,
+                                              n_int=n_int, seed=n_int))
+        assert _support_equal(cols, n_int), kind
+        assert _support_equal([c[1:] for c in cols], n_int), kind
+    cols = _on(cuda_device, _case("dense", n=N * 64 + 3, n_int=n_int)[0])
+    assert _support_equal(cols, n_int)
+
+
+@pytest.mark.cuda
+def test_cuda_support_repeated_calls(cuda_device):
+    """Back-to-back calls of K6 and K2, from the widest table to one bin
+    and back, each into an output the caching allocator hands back
+    unzeroed."""
+    from chip_smoke import v2_to_v3
+
+    packed, _ = _case("dense", n=N * 512, n_int=8190, seed=5)
+    cols = _on(cuda_device, packed)
+    cols3 = _on(cuda_device, v2_to_v3(packed, MIN_MAPQ))
+    wants = {k: kernels.pair2_support_torch(*cols, k, CUTOFF, MIN_MAPQ, GAP)
+             for k in (8190, N_INT, 1)}
+    calls = [(k, lambda k=k: kernels.pair2_support(*cols, k, CUTOFF,
+                                                   MIN_MAPQ, GAP))
+             for k in (8190, 8190, N_INT, N_INT, 1, 8190)]
+    calls[1::2] = [(k, lambda k=k: kernels.pair3_support(*cols3, k, CUTOFF,
+                                                         GAP))
+                   for k, _ in calls[1::2]]
+    got = [(k, call()) for k, call in calls]
+    torch.cuda.synchronize()
+    for k, g in got:
+        assert torch.equal(g, wants[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_support_two_streams(cuda_device):
+    """Two streams at once: each call's zeroing and counts stay on its
+    own stream."""
+    cases = [_on(cuda_device, _ordered_case(kind, n=N * 512, seed=7))
+             for kind in ("bam_order", "last_bin")]
+    wants = [kernels.pair2_support_torch(*c, N_INT, CUTOFF, MIN_MAPQ, GAP)
+             for c in cases]
+    streams = [torch.cuda.Stream(cuda_device) for _ in cases]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(3):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[k].append(kernels.pair2_support(
+                    *cases[k], N_INT, CUTOFF, MIN_MAPQ, GAP))
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert all(torch.equal(g, wants[k]) for g in got[k])
