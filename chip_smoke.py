@@ -18,9 +18,12 @@ exits non-zero:
    K2 and the copy control K7 over the v3 layout and K5, K6 over the v2
    layout at 2^21 pairs and 16 intervals (also against numpy; K5 and K6
    against K1 and K2 on the same pairs), K3 and K4 over the 6-column
-   layout at 2^21 pairs with 16 and with 8,200 intervals (and
-   K4 ÷ K3), once with every hit on 14 intervals whose slots in K4's bin
-   cache collide, K8 at 2^21 reads over 256 and over 65,536 bins, at
+   layout at 2^21 pairs with 16 and with 8,200 intervals and either side
+   of their switch from a scan of the table to lookups in its interval
+   index (and K4 ÷ K3), once with every hit on 14 intervals whose slots in
+   K4's bin cache collide, the index's build against its plain version
+   wherever they look sides up, K8 at 2^21 reads over 256 and over 65,536
+   bins, at
    n_bins either side of each switch of its plan on this card, and over
    the reads sorted by start (also against the prefix-sum histogram), the
    floor of one timed call, K9 at 2,048, 1,001 and 4,096 positions;
@@ -31,9 +34,10 @@ exits non-zero:
       byte-identical, support and coverage exact;
    b. the 6-column route: the sample's amplicon intervals plus 8,190
       decoy intervals that overlap no read, so the ``cuda`` engine goes
-      through K3 and the ``cuda6`` batch scorer through K4; hit mask and
-      BpTable against the ``numpy`` engine, against K1 on the real
-      intervals alone, and again with the decoys placed first;
+      through K3 and the ``cuda6`` batch scorer through K4, both on the
+      list's interval index; hit mask and BpTable against the ``numpy``
+      engine, against K1 on the real intervals alone, and again with the
+      decoys placed first; the stage's time three times each way;
    c. the v2 route: the sample's pairs through the native ``pack_pairs2``,
       the ``cuda2`` batch scorer (K6) against the ``cuda`` and ``torch``
       engines and K5's hit mask against K1's of 4a;
@@ -58,9 +62,12 @@ work: the larger of the bytes it must move (inputs read once, outputs
 written once) over 3.35 TB/s and its integer operations over 16.75 T/s
 (H100 SXM: 64 int32 lanes on each of 132 SMs, a quarter of the 67 TFLOP/s
 float32 rate, which counts 128 lanes and two operations per FMA).  The
-operations of K3 and K4 are counted from this run's data: ten per interval
-a pair examines before its first side is found, thirty for the rest; those
-of K8 likewise: twelve a read and ten per bin that it touches.
+operations of K3 and K4 are counted from this run's data: thirty a pair
+for the decision and four a step for each lookup the data needs, a lookup
+being two binary searches and a walk down the index, ``3 log2 n_int + 1``
+steps (the log adds the linear scan's count beside it, ten per interval
+the scan examines); those of the index's build from its size; those of K8 from the
+reads: twelve a read and ten per bin that it touches.
 """
 from __future__ import annotations
 
@@ -96,6 +103,9 @@ INT_OPS_PER_S = 16.75e12
 OPS_PER_PAIR_V3 = 15      # the decision chain (csrc/pair3.cu)
 OPS_PER_PAIR_6COL = 30    # meta decode, gates, reference jump, decision
 OPS_PER_INTERVAL = 10     # two sides x (three compares + two ands)
+OPS_PER_LOOKUP_STEP = 4   # load, compare, select, halve (a search or a level)
+OPS_PER_BUILD_STEP = 4    # the build's binary search, a step
+OPS_PER_BUILD_SLOT = 12   # a slot of a level: place, cl, two minima, stores
 OPS_PER_PAIR_V2 = 30      # meta2 decode, MAPQ gate, reference jump, decision
 OPS_PER_READ = 12         # clip to the binned range, first bin (csrc/bins.cu)
 OPS_PER_TOUCHED_BIN = 10  # edge, min, difference, atomic, step
@@ -125,6 +135,10 @@ KERNELS = {
                     "coral_tpu/ops/pallas_kernels.py:541"),
     "match_matrix": ("coral_tpu_torch/csrc/match.cu",
                      "coral_tpu/ops/pallas_kernels.py:609"),
+    # the build of the index that K3 and K4 look sides up in: with their
+    # lookups it replaces the TPU kernel's interval scan
+    "interval_index": ("coral_tpu_torch/csrc/index.cu",
+                       "coral_tpu/ops/pallas_kernels.py:36"),
 }
 
 
@@ -208,13 +222,63 @@ def bound_match(n: int):
     return bound_ms(8 * n + n * n, OPS_PER_CELL * n * n)
 
 
-def bound_6col(io: np.ndarray, n_int: int, out_bytes: int):
-    """Bound of K3/K4 on columns whose first interval of side i is ``io``
-    (-1: none, the pair examines the whole table)."""
+def bound_6col_scan(io: np.ndarray, n_int: int, out_bytes: int):
+    """K3/K4's bound counted for a linear scan of the table, the design
+    before the interval index: ten operations for every interval a pair
+    examines before its side i is found (-1 in ``io``: the whole table).
+    Kept for comparison with :func:`bound_6col`."""
     n = len(io)
     examined = int(np.where(io >= 0, io.astype(np.int64) + 1, n_int).sum())
     return bound_ms(24 * n + 12 * n_int + out_bytes,
                     OPS_PER_INTERVAL * examined + OPS_PER_PAIR_6COL * n)
+
+
+def lookups_6col(ints, packed, io, support: bool) -> int:
+    """The first-overlap lookups that K3 (``support`` False) or K4 needs on
+    these columns, ``io`` their side i's first intervals: side i for every
+    pair (K4: for the pairs whose MAPQs and junction test pass, the only
+    ones it counts), side j where those pass, side i was found and its
+    interval overlaps side j."""
+    ic, is_, ie = (np.asarray(a, np.int64) for a in ints)
+    qgap, r1_i, r2_i, r1_j, r2_j, meta = (np.asarray(c, np.int64)
+                                          for c in packed)
+    side_i, side_j = meta >> 14, meta & 0x3FFF
+    plus_j = (side_j & 1) == 1
+    grr = np.where(plus_j, r1_j - r2_i, r2_i - r1_j)
+    could = (((side_i >> 1) & 0xFF) >= MIN_MAPQ) \
+        & (((side_j >> 1) & 0xFF) >= MIN_MAPQ) & (qgap + CUTOFF >= 0) \
+        & (((side_i & 1) != (side_j & 1))
+           | (np.abs(qgap - grr) > np.maximum(GAP, 0.2 * np.abs(qgap))))
+    k = np.where(io >= 0, io, 0)
+    side_j_too = could & (io >= 0) & (ic[k] == (side_j >> 9) - 1) \
+        & (r1_j <= ie[k]) & (is_[k] <= r2_j)
+    first = int(could.sum()) if support else len(io)
+    return first + int(side_j_too.sum())
+
+
+def bound_6col(ints, packed, io, out_bytes: int, support: bool):
+    """Bound of K3/K4 as a function, recounted for the interval index:
+    the 24 B a pair read, the table and the output, and per pair the
+    decision and the lookups these columns need (:func:`lookups_6col`),
+    each two binary searches and a walk down the levels, ``3 log2 n_int
+    + 1`` steps.  The index's build is bound apart
+    (:func:`bound_index`)."""
+    n, n_int = len(io), len(ints[0])
+    steps = 3 * max(n_int - 1, 1).bit_length() + 1
+    return bound_ms(24 * n + 12 * n_int + out_bytes,
+                    OPS_PER_PAIR_6COL * n + OPS_PER_LOOKUP_STEP * steps
+                    * lookups_6col(ints, packed, io, support))
+
+
+def bound_index(n_int: int):
+    """Bound of the index's build: the table read once, the keys and
+    levels written once; a sort of the start keys and, for each level l,
+    a slot's placement by a binary search of l - 1 steps."""
+    top = max(n_int - 1, 0).bit_length()
+    ops = OPS_PER_BUILD_STEP * n_int * top + sum(
+        n_int * (OPS_PER_BUILD_SLOT + OPS_PER_BUILD_STEP * max(level - 1, 0))
+        for level in range(top + 1))
+    return bound_ms(12 * n_int + 16 * n_int + 8 * (top + 1) * n_int, ops)
 
 
 # -- inputs ---------------------------------------------------------------
@@ -938,16 +1002,22 @@ def check_match(kernels, case, p1, p2, cutoff, report, tag="3 kernels"):
 
 def check_6col(kernels, case, ints, packed, report, plain_reps=30,
                tag="3 kernels"):
-    """K3 and K4 against their plain versions on one 6-column case; fills
-    ``report`` and returns the kernel's hit mask (numpy)."""
+    """K3 and K4 against their plain versions on one 6-column case and,
+    where they look sides up in the interval index, the index's build
+    against its plain version; fills ``report`` and returns the kernel's
+    hit mask (numpy).  K3's and K4's times include the index's build."""
     import torch
 
+    from coral_tpu_torch.ops.interval_index import build_interval_index, \
+        build_interval_index_torch
     from coral_tpu_torch.ops.scoring import state_from_numpy
 
     st = state_from_numpy(*ints, packed, device="cuda")
-    args = (st.int_chrom, st.int_start, st.int_end, *st.packed)
+    table = (st.int_chrom, st.int_start, st.int_end)
+    args = (*table, *st.packed)
     kw = dict(cutoff=CUTOFF, min_mapq=MIN_MAPQ, gap_=GAP)
     n, n_int = len(packed[0]), len(ints[0])
+    indexed = n_int > kernels.PAIR6_SCAN_MAX_INTERVALS
 
     hit_k, io_k = kernels.pair6_hitmask(*args, **kw)
     hit_p, io_p = kernels.pair6_hitmask_torch(*args, **kw)
@@ -966,20 +1036,49 @@ def check_6col(kernels, case, ints, packed, report, plain_reps=30,
     fns = {
         "pair6": (lambda: kernels.pair6_hitmask(*args, **kw),
                   lambda: kernels.pair6_hitmask_torch(*args, **kw),
-                  bound_6col(io, n_int, 5 * n)),
+                  bound_6col(ints, packed, io, 5 * n, support=False)),
         "pair6_support": (lambda: kernels.pair6_support(*args, **kw),
                           lambda: kernels.pair6_support_torch(*args, **kw),
-                          bound_6col(io, n_int, 4 * n_int)),
+                          bound_6col(ints, packed, io, 4 * n_int,
+                                     support=True)),
     }
+    if indexed:
+        ix = build_interval_index(*table, "cuda")
+        ref = build_interval_index_torch(*table)
+        torch.cuda.synchronize()
+        errs["interval_index"] = max(
+            int((a.long() - b.long()).abs().max()) if a.numel() else 0
+            for a, b in ((ix.skey, ref.skey), (ix.ekey, ref.ekey),
+                         (ix.lev, ref.lev)))
+        require(ix.top == ref.top and errs["interval_index"] == 0,
+                f"index build != plain ({case})")
+        fns["interval_index"] = (
+            lambda: build_interval_index(*table, "cuda"),
+            lambda: build_interval_index_torch(*table), bound_index(n_int))
     for name, (kern, plain, bound) in fns.items():
         report[name] = _row(f"{case}, {n} pairs, {n_int} intervals",
                             errs[name], kern, plain, bound, plain_reps)
     sup = sup_k.cpu().numpy()
-    _log_rows(tag, f"6-column {case}: n={n} n_int={n_int} "
+    route = "index" if indexed else "scan"
+    _log_rows(tag, f"6-column {case}: n={n} n_int={n_int} route={route} "
               f"hits={int(hit_k.sum())} found_i={int((io >= 0).sum())} "
-              f"bins hit={int((sup > 0).sum())} K3==plain K4==plain", report)
+              f"bins hit={int((sup > 0).sum())} K3==plain K4==plain"
+              + (" build==plain" if indexed else ""), report)
+    scan3, scan4 = (bound_6col_scan(io, n_int, out)[0]
+                    for out in (5 * n, 4 * n_int))
     log(f"[{tag}] 6-column {case}: K4/K3 "
-        f"{report['pair6_support']['ms'] / report['pair6']['ms']:.3f}")
+        f"{report['pair6_support']['ms'] / report['pair6']['ms']:.3f}; "
+        f"lookups K3 {lookups_6col(ints, packed, io, False)} K4 "
+        f"{lookups_6col(ints, packed, io, True)}; bound as a scan "
+        f"K3 {scan3:.4f} K4 {scan4:.4f} ms")
+    if indexed:
+        given = (cuda_ms(lambda: kernels.pair6_hitmask(*args, **kw,
+                                                        index=ix)),
+                 cuda_ms(lambda: kernels.pair6_support(*args, **kw,
+                                                       index=ix)))
+        log(f"[{tag}] 6-column {case}: index build (cold) "
+            f"{report['interval_index']['ms']:.4f} ms; on a built index "
+            f"K3 {given[0]:.4f} K4 {given[1]:.4f} ms")
     return hit_k.cpu().numpy()
 
 
@@ -1017,6 +1116,14 @@ def phase_kernels() -> dict:
                          ("dense", dense_case(N_PAIRS, N_INT, seed=7))):
         rep = {}
         _check_v3(kernels, case, packed, rep)
+        keep(rep)
+    # K3 and K4 either side of their switch from the scan to the index
+    for n_int in (kernels.PAIR6_SCAN_MAX_INTERVALS,
+                  kernels.PAIR6_SCAN_MAX_INTERVALS + 1):
+        rep = {}
+        check_6col(kernels, "dense, at the switch",
+                   *dense_case6(N_PAIRS, n_int, seed=n_int), rep,
+                   plain_reps=2)
         keep(rep)
     for case, ints, packed, reps in (
             ("bench", bench_ints, bench6, 30),
@@ -1352,7 +1459,11 @@ def phase_six_column_path(rec, scoring, report):
             f"6-column path did not route to cuda: {routes}")
     require(launches["pair6"] >= 1, f"K3 never launched: {launches}")
     require(launches["pair6_support"] >= 1, f"K4 never launched: {launches}")
+    require(launches["interval_index"] >= 1,
+            f"the interval index was never built: {launches}")
     require(launches["pair3"] == 0, f"K1 ran on the long list: {launches}")
+    # the breakpoints stage again, for its spread (after the counts)
+    t_cs = [t_c] + [extract(last, "cuda")[2] for _ in range(2)]
 
     # -- against the numpy engine on the same list
     tb_n, hit_n, t_n = extract(last, "numpy")
@@ -1365,6 +1476,7 @@ def phase_six_column_path(rec, scoring, report):
     tb_f, hit_f, t_f = extract(decoys + real, "cuda")
     require(np.array_equal(hit_f, hit_c), "decoys first: hit mask moved")
     require(_bp_tables_equal(tb_f, tb_c), "decoys first: BpTable moved")
+    t_fs = [t_f] + [extract(decoys + real, "cuda")[2] for _ in range(2)]
     # -- the batch scorer: cuda6 == cuda on the real intervals, == torch on
     #    the long list (14 unpacked columns, linear coordinates)
     require(np.array_equal(sup6[:len(real)], scoring["support_v3"]),
@@ -1400,16 +1512,19 @@ def phase_six_column_path(rec, scoring, report):
                (fc, fs.astype(np.int32), fe.astype(np.int32)), packed6,
                rep_f, plain_reps=2, tag="4b wgs6")
     for name, r in rep_f.items():
-        # its times stay in the log; its error joins the result line's
-        report[name][-1]["max_abs_err"] = max(
-            report[name][-1]["max_abs_err"], r["max_abs_err"])
+        # the result line carries this case, the linear scan's worst,
+        # with the errors of both
+        report[name].append(dict(r, max_abs_err=max(
+            report[name][-1]["max_abs_err"], r["max_abs_err"])))
     log(f"[4b wgs6] {len(last)} intervals ({len(real)} real + "
         f"{len(decoys)} decoys), {len(pi)} pairs: hit mask and BpTable "
         f"({len(tb_c)} rows) cuda==numpy, ==K1 on the real intervals, "
         f"unchanged with the decoys first")
-    log(f"[4b wgs6] find_breakpoints_device s: cuda {t_c:.3f} (pair scoring "
-        f"{routes[0].seconds:.3f}) decoys-first cuda {t_f:.3f} numpy "
-        f"{t_n:.3f}")
+    log(f"[4b wgs6] find_breakpoints_device s (the breakpoints stage of "
+        f"the long list), three runs each: cuda "
+        f"{' '.join(f'{t:.3f}' for t in t_cs)} (pair scoring of the first "
+        f"{routes[0].seconds:.3f}) decoys-first cuda "
+        f"{' '.join(f'{t:.3f}' for t in t_fs)} numpy {t_n:.3f}")
     log(f"[4b wgs6] batch scorer cuda6 (K4) {t_score6:.3f} s == cuda (K2) on "
         f"the real intervals == torch on the long list ({t_torch:.3f} s); "
         f"support {sup6[:len(real)].tolist()}, decoys 0, coverage exact")
@@ -1681,7 +1796,7 @@ def main() -> int:
                "pair6": launches6, "pair6_support": launches6,
                "stream_control": launches, "pair2": launches2,
                "pair2_support": launches2, "bin_overlap": launches_bins,
-               "match_matrix": launches_match}
+               "match_matrix": launches_match, "interval_index": launches6}
     kern = []
     for name, (source, replaces) in KERNELS.items():
         rows = report[name]

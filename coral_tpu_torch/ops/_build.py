@@ -76,10 +76,15 @@ def load() -> ctypes.CDLL:
     lib.coral_pair2_hitmask.restype = i
     lib.coral_pair2_support.argtypes = [p] * 5 + [ll, i, i, i, f, i, p]
     lib.coral_pair2_support.restype = i
-    lib.coral_pair6_hitmask.argtypes = [p] * 9 + [p, p, ll, i, i, i, f, i, p]
+    lib.coral_pair6_hitmask.argtypes = [p] * 9 + [p, p, ll, i, i, i, f] \
+        + [p, p, p, i, i, p]
     lib.coral_pair6_hitmask.restype = i
-    lib.coral_pair6_support.argtypes = [p] * 9 + [p, ll, i, i, i, f, i, p]
+    lib.coral_pair6_support.argtypes = [p] * 9 + [p, ll, i, i, i, f] \
+        + [p, p, p, i, i, p]
     lib.coral_pair6_support.restype = i
+    lib.coral_interval_index_build.argtypes = [p, p, p, i, i, p, p, p, p, i,
+                                               p]
+    lib.coral_interval_index_build.restype = i
     lib.coral_stream_control.argtypes = [p, p, p, p, ll, i, p]
     lib.coral_stream_control.restype = i
     lib.coral_bin_overlap.argtypes = [p, p, p, ll, ll, ll] + [i] * 5 + [p]

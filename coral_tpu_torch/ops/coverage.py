@@ -83,7 +83,10 @@ def bin_coverage(starts, ends, origin: int, bin_size: int, n_bins: int, *,
                  engine: str = "torch", device) -> np.ndarray:
     """Aligned-base totals per genome bin, straight from int32 reads
     ``[starts, ends)``: int64 numpy (n_bins,), equal to
-    ``CoverageIndex(starts, ends).bin_histogram(origin, bin_size, n_bins)``.
+    ``CoverageIndex(starts, ends).bin_histogram(origin, bin_size, n_bins)``
+    for reads with ``ends >= starts``.  A read with ``end < start`` counts
+    nothing here (as in K8 and the TPU kernel) and negative in the prefix
+    sums of ``CoverageIndex``.
 
     ``engine='torch'`` runs the plain version on ``device``;
     ``engine='cuda'`` launches the kernel K8 and needs a CUDA device."""

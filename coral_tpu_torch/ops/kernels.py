@@ -14,10 +14,13 @@ memory bandwidth.  K2 and K6 share one body (``csrc/pair_common.cuh``):
 one shared-memory atomic per hit, a block's counts added into the output
 at its end, the output zeroed by a memset on the same stream.  K3 and K4
 stream 24 B per pair of the 6-column layout
-(:data:`.scoring.PACKED_COL_ORDER`) and scan the interval table per pair:
-bound by bandwidth at a handful of intervals and by integer operations at
-thousands; K4 counts its hits on the SM at any number of intervals (every
-bin in shared memory up to 8190, a cache of 2048 bins above).  K8
+(:data:`.scoring.PACKED_COL_ORDER`) and find each side's first interval
+by a scan of the table up to :data:`PAIR6_SCAN_MAX_INTERVALS` (bound by
+bandwidth at a handful of intervals) and by lookups in the table's
+:class:`.interval_index.IntervalIndex` above (bound by the lookups'
+dependent loads); K4 counts its hits on the SM at any number of intervals
+(every bin in shared memory up to 8190, a cache of 2048 bins above) into
+an output zeroed by a memset.  K8
 (aligned bases per genome bin) streams 8 B per read and makes at most four
 updates a read, merged per lane and per warp, in shared-memory tiles of
 the bins (:func:`bin_overlap_plan`); K9 (the match matrix of a
@@ -33,12 +36,13 @@ import math
 import torch
 
 from ..device import resolve_device
+from .interval_index import IntervalIndex, build_interval_index
 from .scoring import MAX_PACKED2_INTERVALS, as_tensor, \
     pair_predicate_packed, pair_predicate_packed2, pair_predicate_packed3
 
 LAUNCHES = {"pair3": 0, "pair3_support": 0, "pair6": 0, "pair6_support": 0,
             "stream_control": 0, "pair2": 0, "pair2_support": 0,
-            "bin_overlap": 0, "match_matrix": 0}
+            "bin_overlap": 0, "match_matrix": 0, "interval_index": 0}
 
 
 def reset_launches() -> None:
@@ -173,13 +177,41 @@ def pair6_support_torch(int_chrom, int_start, int_end, *packed6, cutoff: int,
     return torch.bincount(io[hit], minlength=n_int)[:n_int].to(torch.int32)
 
 
+# K3 and K4 scan the interval table up to this many intervals and look
+# each side up in the interval index above: on the card the two tie at
+# 64 intervals and the index is 1.6x faster at 128 (csrc/pair6.cu)
+PAIR6_SCAN_MAX_INTERVALS = 64
+
+
+def _pair6_index(int_chrom, int_start, int_end, index):
+    """The index arguments of K3's and K4's C entries: those of ``index``
+    (built here when None) above :data:`PAIR6_SCAN_MAX_INTERVALS`
+    intervals, nulls (the scan) up to it."""
+    n_int = int_chrom.shape[0]
+    if n_int <= PAIR6_SCAN_MAX_INTERVALS:
+        return None, None, None, 0
+    if index is None:
+        index = build_interval_index(int_chrom, int_start, int_end,
+                                     int_chrom.device)
+    elif not isinstance(index, IntervalIndex) or index.n != n_int \
+            or index.device != int_chrom.device:
+        raise ValueError("index must be build_interval_index of this table, "
+                         "on its device")
+    return (index.skey.data_ptr(), index.ekey.data_ptr(),
+            index.lev.data_ptr(), index.top)
+
+
 def pair6_hitmask(int_chrom, int_start, int_end, qgap, r1_i, r2_i, r1_j,
-                  r2_j, meta, cutoff: int, min_mapq: int, gap_: float):
+                  r2_j, meta, cutoff: int, min_mapq: int, gap_: float,
+                  index: IntervalIndex | None = None):
     """K3 (replaces ``_pair_kernel`` with ``_first_overlap_scan``): the
-    6-column predicate with the interval scan inside the kernel, over an
-    int32 interval table of any length.  Returns (hit bool (n,), io_i
-    int32 (n,)): ``io_i`` is the first interval overlapping side i, -1 if
-    none, whatever side j does."""
+    6-column predicate over an int32 interval table of any length, the
+    first overlaps found by a scan of the table in the kernel up to
+    :data:`PAIR6_SCAN_MAX_INTERVALS` intervals and by lookups in the
+    table's :class:`.interval_index.IntervalIndex` above (``index``, or
+    built in the call).  Returns (hit bool (n,), io_i int32 (n,)):
+    ``io_i`` is the first interval overlapping side i, -1 if none,
+    whatever side j does."""
     packed6 = (qgap, r1_i, r2_i, r1_j, r2_j, meta)
     n_int, n = _check_pair6(int_chrom, int_start, int_end, packed6)
     if qgap.device.type == "cpu":
@@ -190,34 +222,40 @@ def pair6_hitmask(int_chrom, int_start, int_end, qgap, r1_i, r2_i, r1_j,
     io = torch.empty(n, dtype=torch.int32, device=qgap.device)
     if n == 0:
         return hit, io
+    ix = _pair6_index(int_chrom, int_start, int_end, index)
     _launch("pair6", "coral_pair6_hitmask", qgap,
             int_chrom.data_ptr(), int_start.data_ptr(), int_end.data_ptr(),
             *(c.data_ptr() for c in packed6), hit.data_ptr(), io.data_ptr(), n,
-            n_int, int(cutoff), int(min_mapq), float(gap_))
+            n_int, int(cutoff), int(min_mapq), float(gap_), *ix)
     return hit, io
 
 
 def pair6_support(int_chrom, int_start, int_end, qgap, r1_i, r2_i, r1_j,
-                  r2_j, meta, cutoff: int, min_mapq: int, gap_: float):
+                  r2_j, meta, cutoff: int, min_mapq: int, gap_: float,
+                  index: IntervalIndex | None = None):
     """K4 (replaces ``_pair_hist_kernel``): K3 fused with the per-interval
-    support histogram of ``hit & (io_i == k)``, int32 (n_int,).  A block
-    counts on the SM: every interval's bin in shared memory up to 8190
-    intervals, above that a direct-mapped cache of 2048 bins (slot
-    ``k % 2048``, kept by the first interval that reaches it; the others of
-    that slot go to device memory).  The counts are exact either way."""
+    support histogram of ``hit & (io_i == k)``, int32 (n_int,), on K3's
+    two routes (``index`` as there).  A block counts on the SM: every
+    interval's bin in shared memory up to 8190 intervals, above that a
+    direct-mapped cache of 2048 bins (slot ``k % 2048``, kept by the first
+    interval that reaches it; the others of that slot go to device
+    memory).  The counts are exact either way.  One call is a memset of
+    the output and one launch, at any ``n`` (0 included), besides the
+    index's build."""
     packed6 = (qgap, r1_i, r2_i, r1_j, r2_j, meta)
     n_int, n = _check_pair6(int_chrom, int_start, int_end, packed6)
     if qgap.device.type == "cpu":
         return pair6_support_torch(int_chrom, int_start, int_end, *packed6,
                                    cutoff=cutoff, min_mapq=min_mapq,
                                    gap_=gap_)
-    out = torch.zeros(n_int, dtype=torch.int32, device=qgap.device)
-    if n == 0 or n_int == 0:
+    out = torch.empty(n_int, dtype=torch.int32, device=qgap.device)
+    if n_int == 0:
         return out
+    ix = _pair6_index(int_chrom, int_start, int_end, index)
     _launch("pair6_support", "coral_pair6_support", qgap,
             int_chrom.data_ptr(), int_start.data_ptr(), int_end.data_ptr(),
             *(c.data_ptr() for c in packed6), out.data_ptr(), n, n_int,
-            int(cutoff), int(min_mapq), float(gap_))
+            int(cutoff), int(min_mapq), float(gap_), *ix)
     return out
 
 

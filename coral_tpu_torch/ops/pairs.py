@@ -15,9 +15,10 @@ Engines of :func:`score_pairs_l`:
 * ``cuda``: the hand-written kernels.  Up to ``MAX_PACKED2_INTERVALS``
   intervals, K1 (:func:`.kernels.pair3_hitmask`) over the v3 columns,
   whose interval gate is resolved at pack time; above that, K3
-  (:func:`.kernels.pair6_hitmask`) over the 6-column layout, which scans
-  the interval table in the kernel.  Needs a CUDA device and the NM gate
-  off (a finite ``max_nm`` goes to ``torch``).
+  (:func:`.kernels.pair6_hitmask`) over the 6-column layout, which looks
+  each side up in the interval table's index
+  (:mod:`.interval_index`, built in the call).  Needs a CUDA device and
+  the NM gate off (a finite ``max_nm`` goes to ``torch``).
 """
 from __future__ import annotations
 
@@ -745,9 +746,9 @@ def _hitmask_6col(table, pi, int_chrom, int_start, int_end, cutoff, min_mapq,
                   gap_, dev):
     """6 columns from the native one-pass packer (numpy twin when the
     library is unavailable) through :func:`.kernels.pair6_hitmask`, which
-    scans the interval table itself: the gate index of a long list no
-    longer fits the v3 meta word.  The bounds are int32 there, as in the
-    JAX package."""
+    finds each side's interval itself, in the table's interval index: the
+    gate index of a long list no longer fits the v3 meta word.  The bounds
+    are int32 there, as in the JAX package."""
     from .kernels import pair6_hitmask
     from .scoring import as_tensor, pack_pair_cols
 

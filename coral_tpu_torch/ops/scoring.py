@@ -513,10 +513,12 @@ def make_batch_scorer(int_chrom, int_start, int_end, engine: str = "torch",
     reference jump itself; the same limit.  ``engine='cuda6'``
     (``engine='pallas6'`` there):
     ``score(tables, qgap, r1_i, r2_i, r1_j, r2_j, meta)`` over the
-    6-column layout with the kernel that scans the interval table itself
-    (K4), any number of intervals; the kernel scans the low 32 bits of the
-    bounds (``np.asarray(int_start, np.int32)`` there) and the coverage
-    query reads all 64.  The CUDA engines have no NM gate.
+    6-column layout with the kernel that finds each side's interval itself
+    (K4), any number of intervals, by a scan of the table or, past
+    ``kernels.PAIR6_SCAN_MAX_INTERVALS``, in the table's interval index,
+    built once here; the kernel reads the low 32 bits of the bounds
+    (``np.asarray(int_start, np.int32)`` there) and the coverage query
+    reads all 64.  The CUDA engines have no NM gate.
 
     Returns (build_tables, score); ``score`` -> (support int32, cov int64).
     """
@@ -566,14 +568,19 @@ def make_batch_scorer(int_chrom, int_start, int_end, engine: str = "torch",
 
         return build_tables, score
     if engine == "cuda6":
-        from .kernels import pair6_support
+        from .interval_index import build_interval_index
+        from .kernels import PAIR6_SCAN_MAX_INTERVALS, pair6_support
 
         table32 = ic, is_.to(torch.int32), ie.to(torch.int32)
+        # built once for every batch, where the kernel looks sides up
+        index = build_interval_index(*table32, dev) \
+            if dev.type == "cuda" and n_int > PAIR6_SCAN_MAX_INTERVALS \
+            else None
 
         def score(tables, *packed6):
             support = pair6_support(
                 *table32, *(as_tensor(c, dev, torch.int32) for c in packed6),
-                cutoff, min_mapq, gap_)
+                cutoff, min_mapq, gap_, index=index)
             return support, cov(tables)
 
         return build_tables, score

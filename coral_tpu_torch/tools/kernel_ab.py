@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of K2, K3, K4, K6 and K8 against other checkouts, on one GPU.
+"""A/B of K2, K3, K4, K6, K8 and the interval index against other
+checkouts, on one GPU.
 
     python3 coral_tpu_torch/tools/kernel_ab.py DIR[,DIR...]
         [--only NAME[,NAME...]] [--json PATH]
@@ -10,9 +11,19 @@ The kernels of every DIR and of this checkout run the same inputs, each
 checkout in processes of its own, in the order DIRs, this, this, DIRs
 reversed, so that every checkout is measured twice and drift shows.
 ``--only`` keeps some wrappers: ``pair6`` (K3), ``pair6_support`` (K4),
+``interval_index`` (the build of the index K3 and K4 look sides up in,
+at their long-list shapes; a checkout without it has no such rows),
+``pair6_routes`` (K3 by each of its routes, the scan and the index, at
+16 to 512 intervals of dense pairs, where the wrapper switches between
+them; a checkout without the index has no such rows),
 ``bin_overlap`` (K8), ``pair3_support`` (K2, with K1 and the copy control
-K7 timed on the same columns) or ``pair2_support`` (K6, with K5); without
-it every one runs.  K2 and K6 run on the WGS sample's own pairs (the
+K7 timed on the same columns), ``pair2_support`` (K6, with K5) or
+``breakpoints`` (the breakpoints stage of the long list:
+``find_breakpoints_device(engine="cuda")`` on the WGS sample's chimeras
+over its amplicon intervals and 8,190 decoys, last and first, host time
+of five runs after one to warm up, each checkout's own host stages of
+``reconstruct`` first, about 10 s a process; its tables must agree
+across checkouts); without it every one runs.  K2 and K6 run on the WGS sample's own pairs (the
 junction-heavy sample's adjacent pairs over its 10 amplicon intervals,
 through the host stages of ``reconstruct``), on ``chip_smoke``'s dense
 cases at 2^21 pairs and 16 intervals, on pairs in BAM order and pairs
@@ -53,8 +64,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 IDLE_CYCLES = 200_000     # about 0.1 ms of the card's clock
 HOST_CALLS = 200
-WRAPPERS = ("pair6", "pair6_support", "bin_overlap", "pair3_support",
-            "pair2_support")
+WRAPPERS = ("pair6", "pair6_support", "interval_index", "pair6_routes",
+            "bin_overlap", "pair3_support", "pair2_support", "breakpoints")
+ROUTE_SHAPES = (16, 32, 64, 128, 256, 512)
+STAGE_RUNS = 5
 # (label, numerator, denominator): kernels read against their sticks
 RATIOS = (("K4/K3", "pair6_support", "pair6"),
           ("K2/K1", "pair3_support", "pair3"),
@@ -266,7 +279,12 @@ def cases(cs, kernels, sample_reads, wgs, only):
 
     out = []
     kw = dict(cutoff=cs.CUTOFF, min_mapq=cs.MIN_MAPQ, gap_=cs.GAP)
-    if only & {"pair6", "pair6_support"}:
+    try:
+        from coral_tpu_torch.ops.interval_index import (
+            build_interval_index, build_interval_index_torch)
+    except ImportError:       # a checkout from before the index
+        build_interval_index = None
+    if only & {"pair6", "pair6_support", "interval_index"}:
         _, bench6, _ = cs._bench_inputs()
         for case, (ints, packed) in (
                 ("bench, 16 intervals", bench6),
@@ -289,6 +307,23 @@ def cases(cs, kernels, sample_reads, wgs, only):
                     out.append((case, name,
                                 lambda a=a, f=kern: f(*a, **kw),
                                 lambda a=a, f=plain: f(*a, **kw)))
+            if "interval_index" in only and build_interval_index \
+                    and "16" not in case:
+                out.append((case, "interval_index",
+                            lambda a=a: build_interval_index(*a[:3], "cuda"),
+                            lambda a=a: build_interval_index_torch(*a[:3])))
+    if "pair6_routes" in only and build_interval_index:
+        for n_i in ROUTE_SHAPES:
+            ints, packed = cs.dense_case6(cs.N_PAIRS, n_i, seed=n_i)
+            st = state_from_numpy(*ints, packed, device="cuda")
+            a = (st.int_chrom, st.int_start, st.int_end, *st.packed)
+            for route, threshold in (("scan", 1 << 30), ("index", 0)):
+                out.append((f"dense, {n_i} intervals, by the {route}",
+                             "pair6",
+                             lambda a=a, t=threshold: _routed(kernels, t, a,
+                                                              kw),
+                             lambda a=a: kernels.pair6_hitmask_torch(*a,
+                                                                     **kw)))
     if "bin_overlap" in only:
         starts, ends = cs.synth_reads(cs.N_READS)
         order = np.argsort(starts, kind="stable")
@@ -317,6 +352,69 @@ def cases(cs, kernels, sample_reads, wgs, only):
     return out
 
 
+def _routed(kernels, threshold: int, args, kw):
+    """K3 with the switch between its routes set to ``threshold``."""
+    keep = kernels.PAIR6_SCAN_MAX_INTERVALS
+    kernels.PAIR6_SCAN_MAX_INTERVALS = threshold
+    try:
+        return kernels.pair6_hitmask(*args, **kw)
+    finally:
+        kernels.PAIR6_SCAN_MAX_INTERVALS = keep
+
+
+def _tensors(out) -> tuple:
+    """A wrapper's result as a tuple of tensors (an index: its own)."""
+    if hasattr(out, "lev"):
+        return out.skey, out.ekey, out.lev
+    return out if isinstance(out, tuple) else (out,)
+
+
+def breakpoint_stage(cs, bam_path: str, cns: str, seeds: str):
+    """Rows of the breakpoints stage on the long list (``--only
+    breakpoints``): host seconds of :data:`STAGE_RUNS` runs of
+    ``find_breakpoints_device(engine="cuda")`` and a digest of its
+    table, with the decoys last and first."""
+    import hashlib
+
+    import torch
+
+    from coral_tpu_torch.config import DEFAULT_CONFIG
+    from coral_tpu_torch.io.bam import BamFile
+    from coral_tpu_torch.ops.pairs import find_breakpoints_device
+    from coral_tpu_torch.reconstruct import Reconstruction
+
+    rec = Reconstruction(BamFile(bam_path), seeds, DEFAULT_CONFIG,
+                         device="cpu")
+    rec.read_cns(cns)
+    rec.collect()
+    rec.hash_to_segments()
+    rec.find_amplicon_intervals()
+    rec.bam.close()
+    bp = DEFAULT_CONFIG.bp
+    real = [list(iv) for iv in rec.amplicon_intervals]
+    decoys = cs.decoy_intervals(N_DECOYS)
+    rows = []
+    for case, intervals in (("WGS sample, decoys last", real + decoys),
+                            ("WGS sample, decoys first", decoys + real)):
+        secs = []
+        for k in range(STAGE_RUNS + 1):
+            t0 = time.perf_counter()
+            tb = find_breakpoints_device(
+                rec.chimeras, intervals, bp.min_bp_match_cutoff,
+                bp.min_mapq, 100, bp.gap_mapq, None, engine="cuda",
+                as_table=True, device="cuda")
+            torch.cuda.synchronize()
+            if k:
+                secs.append(time.perf_counter() - t0)
+        digest = hashlib.sha256()
+        for c in ("c1", "p1", "s1", "c2", "p2", "s2", "ridx", "ti", "tj",
+                  "rgap", "flip", "q1", "q2"):
+            digest.update(np.ascontiguousarray(getattr(tb, c)).tobytes())
+        rows.append(dict(case=case, kernel="breakpoints", seconds=secs,
+                         rows=len(tb), digest=digest.hexdigest()[:16]))
+    return rows
+
+
 def child(root: str, sample: str, only: set) -> None:
     """The kernels of the checkout at ``root`` on :func:`cases`; one JSON
     line."""
@@ -333,13 +431,12 @@ def child(root: str, sample: str, only: set) -> None:
         sample_reads = z["starts"], z["ends"]
         wgs = ([z[f"v3_{k}"] for k in range(3)],
                [z[f"v2_{k}"] for k in range(4)], int(z["n_int"]))
-    rows = []
+        inputs = [str(z[k]) for k in ("bam", "cns", "seeds")]
+    rows = breakpoint_stage(cs, *inputs) if "breakpoints" in only else []
     for case, name, call, plain in cases(cs, kernels, sample_reads, wgs,
                                          only):
-        got, want = call(), plain()
+        got, want = (_tensors(x) for x in (call(), plain()))
         torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
         cs.require(all(torch.equal(g, w) for g, w in zip(got, want)),
                    f"{root}: {name} != plain ({case})")
         dev = device_us(call)
@@ -387,6 +484,7 @@ def main(argv) -> int:
         p3, p2, n_int = wgs_pairs(cs, bam_path, cns, seeds)
         np.savez(sample, starts=bam.pos[first].astype(np.int32),
                  ends=bam.end[first].astype(np.int32), n_int=n_int,
+                 bam=bam_path, cns=cns, seeds=seeds,
                  **{f"v3_{k}": c for k, c in enumerate(p3)},
                  **{f"v2_{k}": c for k, c in enumerate(p2)})
         bam.close()
@@ -404,11 +502,26 @@ def main(argv) -> int:
     gpu = cs.nvidia_smi()
     print(f"gpu: {gpu}")
     print(f"checkouts: {', '.join(names)}; per checkout its two runs")
-    for k, row in enumerate(runs[roots[0]][0]):
-        print(f"{row['case']} | {row['kernel']}")
+    # rows by (case, kernel): a checkout may lack some (the index)
+    keyed = {r: [{(x["case"], x["kernel"]): x for x in run}
+                 for run in runs[r]] for r in roots}
+    order_of = list(dict.fromkeys((x["case"], x["kernel"])
+                                  for r in roots for x in runs[r][0]))
+    for key in order_of:
+        print(f"{key[0]} | {key[1]}")
         base = None
         for n, r in zip(names, roots):
-            a, b = (x[k] for x in runs[r])
+            if key not in keyed[r][0]:
+                print(f"    {n}: none")
+                continue
+            a, b = (x[key] for x in keyed[r])
+            if key[1] == "breakpoints":
+                secs = a["seconds"] + b["seconds"]
+                print(f"    {n}: s {' '.join(f'{t:.4f}' for t in secs)} | "
+                      f"median {np.median(secs):.4f} min {min(secs):.4f} "
+                      f"max {max(secs):.4f} | rows {a['rows']} digest "
+                      f"{a['digest']} {b['digest']}")
+                continue
             mean = (a["ms"] + b["ms"]) / 2
             base = base or mean
             print(f"    {n}: ms {a['ms']:.4f} {b['ms']:.4f} | ms_wait "
@@ -416,13 +529,18 @@ def main(argv) -> int:
                   f"{a['device_us']} {b['device_us']} | host_us "
                   f"{a['host_us']:.2f} {b['host_us']:.2f} | ms / "
                   f"{names[0]} {mean / base:.3f}")
+    digests = {x["digest"] for r in roots for run in runs[r] for x in run
+               if x["kernel"] == "breakpoints"}
+    if len(digests) > 1:
+        print(f"breakpoint tables differ between runs: {sorted(digests)}")
+        return 1
     for case in dict.fromkeys(row["case"] for row in runs[roots[0]][0]):
         ratio = []
         for n, r in zip(names, roots):
             ms = {}
             for x in runs[r]:
                 for row in x:
-                    if row["case"] == case:
+                    if row["case"] == case and "ms" in row:
                         ms[row["kernel"]] = ms.get(row["kernel"], 0) \
                             + row["ms"]
             parts = [f"{label} {ms[a] / ms[b]:.3f}"
@@ -434,7 +552,7 @@ def main(argv) -> int:
     for n, r in zip(names, roots):
         for row in runs[r][0]:
             if row["kernel"] in ("pair3_support", "pair2_support",
-                                 "pair6_support"):
+                                 "pair6_support", "pair6", "pair3"):
                 print(f"profiler, {n}, {row['kernel']}, {row['case']}: "
                       f"{row['launches']}")
     if out_json:

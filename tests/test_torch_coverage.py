@@ -287,3 +287,23 @@ def test_cuda_bin_overlap_route_switches(cuda_device, order):
         assert kernels.LAUNCHES["bin_overlap"] == before + 1
         want = kernels.bin_overlap_torch(s, e, 0, bin_size, n_bins)
         assert torch.equal(got, want), (n_bins, plan)
+
+
+def test_bin_coverage_reversed_reads_count_nothing():
+    """A read with end < start adds nothing to bin_coverage (as K8 and the
+    TPU kernel, max(overlap, 0)), where the prefix sums of CoverageIndex,
+    in both packages, count it negative: the qualifier the docstring
+    states."""
+    from coral_tpu.ops.coverage import CoverageIndex as JaxCoverageIndex
+
+    starts = np.array([100, 500, 250], np.int32)
+    ends = np.array([300, 400, 260], np.int32)       # the second reversed
+    got = bin_coverage(starts, ends, 0, 200, 3, device="cpu")
+    np.testing.assert_array_equal(got, [100, 110, 0])
+    forward = bin_coverage(starts[[0, 2]], ends[[0, 2]], 0, 200, 3,
+                           device="cpu")
+    np.testing.assert_array_equal(got, forward)
+    want = CoverageIndex(starts, ends, device="cpu").bin_histogram(0, 200, 3)
+    np.testing.assert_array_equal(want, [100, 110, -100])
+    np.testing.assert_array_equal(
+        JaxCoverageIndex(starts, ends).bin_histogram(0, 200, 3), want)

@@ -178,7 +178,8 @@ def test_cpu_wrappers_do_not_launch():
     assert kernels.LAUNCHES == before
     assert set(before) == {"pair3", "pair3_support", "pair6",
                            "pair6_support", "stream_control", "pair2",
-                           "pair2_support", "bin_overlap", "match_matrix"}
+                           "pair2_support", "bin_overlap", "match_matrix",
+                           "interval_index"}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "length", "strided", "columns",
@@ -256,6 +257,85 @@ def test_cuda_pair6_support_cache_collisions(cuda_device, n_int):
     assert torch.equal(sup, kernels.pair6_support_torch(*args, **KW))
     assert int(sup.sum()) == int(hit.sum()) > 0
     assert int((sup > 0).sum()) <= 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["scan", "index"])
+@pytest.mark.parametrize("n_int", [kernels.PAIR6_SCAN_MAX_INTERVALS,
+                                   kernels.PAIR6_SCAN_MAX_INTERVALS + 1, 513,
+                                   8200])
+def test_cuda_pair6_routes_equal_plain(cuda_device, monkeypatch, n_int,
+                                       route):
+    """K3 and K4 by each route, the scan and the interval index, at the
+    switch between them and at 8,200 intervals, against their plain
+    versions; by the rule as the wrapper has it, and with the route forced
+    through the switch's threshold."""
+    ints, packed = dense_case6(N * 40 + 3, n_int, seed=n_int)
+    st = state_from_numpy(*ints, packed, device=cuda_device)
+    args = (st.int_chrom, st.int_start, st.int_end, *st.packed)
+    want_hit, want_io = kernels.pair6_hitmask_torch(*args, **KW)
+    want_sup = kernels.pair6_support_torch(*args, **KW)
+    for threshold in (kernels.PAIR6_SCAN_MAX_INTERVALS,
+                      n_int if route == "scan" else n_int - 1):
+        monkeypatch.setattr(kernels, "PAIR6_SCAN_MAX_INTERVALS", threshold)
+        builds = kernels.LAUNCHES["interval_index"]
+        hit, io = kernels.pair6_hitmask(*args, **KW)
+        sup = kernels.pair6_support(*args, **KW)
+        torch.cuda.synchronize()
+        assert torch.equal(hit, want_hit) and torch.equal(io, want_io)
+        assert torch.equal(sup, want_sup)
+        indexed = n_int > threshold
+        assert kernels.LAUNCHES["interval_index"] == builds + 2 * indexed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_int", [1, 2, 5, 17, 1024, 1025, 8200, 20_000])
+def test_cuda_interval_index_build_equals_plain(cuda_device, n_int):
+    """The build's kernels against the plain build, bit for bit, within
+    one shared-memory chunk of 1024 rows and across several."""
+    from coral_tpu_torch.ops.interval_index import (
+        build_interval_index, build_interval_index_torch)
+
+    rng = np.random.default_rng(n_int)
+    ic = rng.choice([-2, -1, 0, 3, 30, 40], n_int).astype(np.int32)
+    is_ = rng.integers(-1000, 400_000, n_int).astype(np.int32)
+    ie = (is_ + rng.integers(-20_000, 200_000, n_int)).astype(np.int32)
+    dup = n_int // 3            # rows repeated further down the table
+    for a in (ic, is_, ie):
+        a[:dup] = a[n_int - dup:]
+    table = [torch.from_numpy(a).to(cuda_device) for a in (ic, is_, ie)]
+    builds = kernels.LAUNCHES["interval_index"]
+    got = build_interval_index(*table, cuda_device)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["interval_index"] == builds + 1
+    want = build_interval_index_torch(*table)
+    assert got.top == want.top
+    assert torch.equal(got.skey, want.skey)
+    assert torch.equal(got.ekey, want.ekey)
+    assert torch.equal(got.lev, want.lev)
+
+
+@pytest.mark.cuda
+def test_cuda_pair6_kernels_take_a_built_index(cuda_device):
+    """An index built once serves every call (the cuda6 batch scorer's
+    way), with no build in the call."""
+    from coral_tpu_torch.ops.interval_index import build_interval_index
+
+    ints, packed = dense_case6(N * 40 + 3, 8200, seed=13)
+    st = state_from_numpy(*ints, packed, device=cuda_device)
+    args = (st.int_chrom, st.int_start, st.int_end, *st.packed)
+    index = build_interval_index(*args[:3], cuda_device)
+    builds = kernels.LAUNCHES["interval_index"]
+    hit, io = kernels.pair6_hitmask(*args, **KW, index=index)
+    sup = kernels.pair6_support(*args, **KW, index=index)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["interval_index"] == builds
+    want_hit, want_io = kernels.pair6_hitmask_torch(*args, **KW)
+    assert torch.equal(hit, want_hit) and torch.equal(io, want_io)
+    assert torch.equal(sup, kernels.pair6_support_torch(*args, **KW))
+    other = build_interval_index(*(a[:-1] for a in args[:3]), cuda_device)
+    with pytest.raises(ValueError):
+        kernels.pair6_hitmask(*args, **KW, index=other)
 
 
 @pytest.mark.cuda
