@@ -26,7 +26,8 @@ exits non-zero:
    bins, at
    n_bins either side of each switch of its plan on this card, and over
    the reads sorted by start (also against the prefix-sum histogram), the
-   floor of one timed call, K9 at 2,048, 1,001 and 4,096 positions;
+   floor of one timed call, K9 at 2,048, 1,001 and 4,096 positions; K1's
+   device time by the profiler, after an L2 flush and warm;
 4. the main paths at WGS scale, on the junction-heavy 10-chromosome
    sample (5,179,920 records, 1.5 M pairs):
    a. reconstruct with the ``cuda`` engine (K1) and the fused batch
@@ -48,9 +49,26 @@ exits non-zero:
       ``engine="host"`` on the breakpoint rows of the mixed sample and on
       a seeded list with groups of 1,000 to 4,096 members and one past
       the cap: the same clusters, member for member, in order;
+   f. the batched CN engine: the sample's 10 graphs as 4a built them,
+      ``compute_cn(engine="batch")`` on the card against ``numpy``
+      (graph files byte-identical), 256 seeded chain systems of up to
+      477 rows solved together against the numpy engine one by one
+      (every ``"%f" % (2x)`` digit equal), and the batch's time against
+      the numpy loop's at 1 to 256 systems;
+   g. the fused scoring step: ``make_fused_step`` with its ``cuda``
+      engine (K4) against ``torch`` and the numpy twin on the sample's
+      unpacked pairs, over its 10 intervals and with 8,190 decoys first:
+      support bit-equal, coverage equal in int64;
 5. the full pipeline with cycles on a mixed sample through
    ``python -m coral_tpu_torch reconstruct``, ``cuda`` vs ``numpy``:
-   graph and cycles files byte-identical.
+   graph and cycles files byte-identical;
+6. the user's pipeline on the same sample through the CLI: ``seed`` on its
+   ``.cns``, ``reconstruct`` from the bed it wrote with the ``cuda`` and
+   ``batch`` engines and again with ``numpy`` for both (graph and cycles
+   files byte-identical), and ``cycle2bed`` on the cycles with and without
+   ``--rotate_to_min``.  ``hsr`` and ``plot`` need matplotlib, which the
+   machine with the card may not have; they run no device code, and the
+   CPU tests hold them to the JAX package's.
 
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Nothing here
@@ -72,10 +90,12 @@ reads: twelve a read and ten per bin that it touches.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import filecmp
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -115,6 +135,10 @@ N_READS = 1 << 21
 READ_SPAN = 200_000_000
 MATCH_CUTOFF = 2000
 COVERAGE_BIN = 100_000    # phase 4d: 1,594 bins a chromosome
+CN_SYSTEMS = 256          # phase 4f: chains of 3 to 120 segments
+CN_BATCHES = (1, 8, 32, 128, 256)
+FUSED_SAMPLE = 64         # phase 4g: the numpy twin on every 64th pair of
+#                           the long list (its masks are pairs x intervals)
 
 KERNELS = {
     "pair3": ("coral_tpu_torch/csrc/pair3.cu",
@@ -180,6 +204,34 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_us(fn, kernel: str, flush: bool, reps: int = 20):
+    """Device µs a call of the kernel whose name holds ``kernel``, in
+    ``reps`` calls of ``fn``, as the profiler reads it
+    (``coral_tpu_torch/tools/kernel_ab.py``), each call after an L2 flush
+    with ``flush``; None where the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush:
+                    buf.zero_()
+                fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+    except RuntimeError as exc:   # no device trace on this machine
+        log(f"profiler: {exc}")
+        return None
+    total = sum(getattr(r, "device_time_total", None)
+                or getattr(r, "cuda_time_total", 0)
+                for r in rows if kernel in r.key)
+    return total / reps or None
 
 
 def bound_ms(n_bytes: int, n_ops: int):
@@ -789,6 +841,17 @@ def _check_v3(kernels, case, packed, report):
         f"{ms['pair3'] / ms['stream_control']:.3f} K2/K7 "
         f"{ms['pair3_support'] / ms['stream_control']:.3f} K2/K1 "
         f"{ms['pair3_support'] / ms['pair3']:.3f}")
+    # K1's device time, which holds no call's floor, against its bound,
+    # cold (after an L2 flush, as the bound reads its inputs) and warm
+    k1 = fns["pair3"][0]
+    cold = device_us(k1, "pair3_hitmask", flush=True)
+    warm = device_us(k1, "pair3_hitmask", flush=False)
+    bound_us = report["pair3"]["bound_ms"] * 1e3
+    log(f"[3 kernels] v3 {case}: K1 device us (profiler) after an L2 flush "
+        f"{cold if cold is None else round(cold, 2)}, warm "
+        f"{warm if warm is None else round(warm, 2)}; bound {bound_us:.2f} "
+        f"us, bound / cold device time "
+        f"{'not measured' if cold is None else f'{bound_us / cold:.3f}'}")
 
 
 def check_v2(kernels, case, packed, n_int, report, tag="3 kernels"):
@@ -1205,12 +1268,19 @@ def _staged(bam_path, cns, seeds, prefix, cfg, device):
     t0 = time.perf_counter()
     rec.build_graph()
     rec.assign_cov()
+    t_graph = time.perf_counter() - t0
+    # the graphs as CN finds them, for phase 4f (not timed)
+    t_copy = time.perf_counter()
+    before_cn = copy.deepcopy(rec.graphs)
+    t_copy = time.perf_counter() - t_copy
+    t0 = time.perf_counter()
     rec.compute_cn()
+    stages["cn"] = time.perf_counter() - t0
     for gi, g in enumerate(rec.graphs):
         write_graph_file(g, f"{prefix}_amplicon{gi + 1}_graph.txt")
-    stages["graph+cn+write"] = time.perf_counter() - t0
-    stages["total"] = time.perf_counter() - t_all
-    return rec, stages
+    stages["graph+cn+write"] = t_graph + time.perf_counter() - t0
+    stages["total"] = time.perf_counter() - t_all - t_copy
+    return rec, stages, before_cn
 
 
 def _interval_arrays(intervals, span=0):
@@ -1273,8 +1343,9 @@ def phase_main_path(work: str):
     # the main path's run: counters from zero, nothing else launches
     seq = last_route_seq()
     kernels.reset_launches()
-    rec_c, st_c = _staged(bam, cns, seeds, os.path.join(work, "cuda"),
-                          cfg("cuda"), "cuda")
+    rec_c, st_c, before_cn = _staged(bam, cns, seeds,
+                                     os.path.join(work, "cuda"),
+                                     cfg("cuda"), "cuda")
     table = build_chimera_table(rec_c.chimeras)
     pi, _ = adjacent_pair_indices(table.read_off)
     span = np.int64(1) << 32
@@ -1317,8 +1388,8 @@ def phase_main_path(work: str):
                                                       GAP)),
           "K7": cuda_ms(lambda: kernels.stream_control(*cols))}
 
-    rec_n, st_n = _staged(bam, cns, seeds, os.path.join(work, "numpy"),
-                          cfg("numpy"), "cuda")
+    rec_n, st_n, _ = _staged(bam, cns, seeds, os.path.join(work, "numpy"),
+                             cfg("numpy"), "cuda")
     rec_n.bam.close()
     n_pairs = routes[0].n_pairs if routes else 0
     require(routes and routes[0].engine == "cuda",
@@ -1355,7 +1426,8 @@ def phase_main_path(work: str):
         f"{ms['K2'] / ms['K1']:.3f}")
     log(f"[4a wgs] launches in the main path's run: {launches}")
     scoring = dict(table=table, pi=pi, starts=starts, ends=ends, span=span,
-                   hit_v3=hit_k.cpu().numpy(), support_v3=support, cov_v3=cov)
+                   hit_v3=hit_k.cpu().numpy(), support_v3=support, cov_v3=cov,
+                   before_cn=before_cn, stages=st_c)
     return rec_c, launches, errs, scoring
 
 
@@ -1725,6 +1797,176 @@ def phase_cluster_path(work: str, report):
     return launches
 
 
+def chain_cn_system(rng, k: int):
+    """A k-segment chain's balance program (sequence and concordant edges;
+    ``tests/test_cn_solver.py::_random_system``): n = 2k - 1 variables and
+    2(k - 1) rows, so n + m = 4k - 3."""
+    n = 2 * k - 1
+    wcn = np.abs(rng.normal(50, 10, n)) + 5
+    wlncn = np.concatenate([np.full(k, -0.5),
+                            np.abs(rng.normal(300, 50, k - 1))])
+    wlrseg = np.concatenate([np.abs(rng.normal(5e4, 1e4, k)),
+                             np.zeros(k - 1)])
+    A = np.zeros((2 * (k - 1), n))
+    for j in range(k - 1):
+        A[2 * j][j] = 1
+        A[2 * j][k + j] = -1
+        A[2 * j + 1][j + 1] = 1
+        A[2 * j + 1][k + j] = -1
+    return wlrseg, wcn, wlncn, A
+
+
+def _digits(x):
+    return ["%f" % (2 * v) for v in x]
+
+
+def phase_cn_batch(rec, scoring, work: str) -> None:
+    """4f: the batched CN engine on the card.  The WGS sample's graphs as
+    4a built them, through ``compute_cn(engine="batch")`` and ``numpy``;
+    then seeded chain systems solved together against the numpy engine,
+    and the two timed from 1 to 256 systems."""
+    import torch
+
+    from coral_tpu_torch.graph import cn_solver
+    from coral_tpu_torch.graph.breakpoint_graph import write_graph_file
+
+    before = scoring["before_cn"]
+    kept = rec.graphs
+    secs = {}
+    for engine in ("batch", "numpy"):
+        secs[engine] = []
+        for _ in range(3):
+            rec.graphs = copy.deepcopy(before)
+            t0 = time.perf_counter()
+            rec.compute_cn(engine=engine)
+            secs[engine].append(time.perf_counter() - t0)
+        for gi, g in enumerate(rec.graphs):
+            write_graph_file(g, os.path.join(
+                work, f"cn_{engine}_amplicon{gi + 1}_graph.txt"))
+    rec.graphs = kept
+    for gi in range(len(before)):
+        name = f"amplicon{gi + 1}_graph.txt"
+        for a, b in (("cn_batch_", "cn_numpy_"), ("cn_batch_", "cuda_")):
+            require(filecmp.cmp(os.path.join(work, a + name),
+                                os.path.join(work, b + name), shallow=False),
+                    f"{a + name} != {b + name}")
+    sizes = []
+    for g in before:
+        w = cn_solver._lr_weights(g, rec.normal_cov)[1]
+        A = cn_solver._balance_matrix(g, len(w))
+        sizes.append(len(w) + (0 if A is None else A.shape[0]))
+    st = scoring["stages"]
+    log(f"[4f cn] WGS sample, {len(before)} graphs (n + m "
+        f"{sorted(sizes)}): graph files batch (cuda) == numpy == 4a's; "
+        f"compute_cn s, three runs each: batch "
+        f"{' '.join(f'{t:.4f}' for t in secs['batch'])} numpy "
+        f"{' '.join(f'{t:.4f}' for t in secs['numpy'])}; 4a's CN (numpy, "
+        f"auto) {st['cn']:.4f} s of graph+cn+write {st['graph+cn+write']:.3f}"
+        f" s ({st['cn'] / st['graph+cn+write']:.3f})")
+
+    rng = np.random.default_rng(43)
+    systems = [chain_cn_system(rng, int(k))
+               for k in rng.integers(3, 121, CN_SYSTEMS)]
+    torch.cuda.reset_peak_memory_stats()
+    xs = cn_solver.solve_cn_balance_batch(systems, device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    per_system = []
+    worst = 0.0
+    for s, x in zip(systems, xs):
+        t0 = time.perf_counter()
+        want = cn_solver.solve_cn_balance(*s, engine="numpy", device="cpu")
+        per_system.append(time.perf_counter() - t0)
+        require(_digits(x) == _digits(want),
+                f"batch != numpy in a digit (n = {len(s[1])})")
+        worst = max(worst, float(np.max(np.abs(x - want) / np.abs(want))))
+    n_max = max(len(s[1]) + s[3].shape[0] for s in systems)
+    log(f"[4f cn] {CN_SYSTEMS} chain systems, n + m up to {n_max}: batch "
+        f"(cuda) == numpy in every digit, largest relative error {worst:.3e}"
+        f"; peak device memory {peak / 2**20:.1f} MiB")
+    rows = []
+    for b in CN_BATCHES:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            cn_solver.solve_cn_balance_batch(systems[:b], device="cuda")
+            times.append(time.perf_counter() - t0)
+        rows.append((b, float(np.median(times)), sum(per_system[:b])))
+    wins = [b for b, t_batch, t_np in rows if t_batch < t_np]
+    log("[4f cn] s, batch on the card (median of 3) / numpy loop: " + "; ".join(
+        f"B={b} {t_batch:.4f} / {t_np:.4f}" for b, t_batch, t_np in rows))
+    log(f"[4f cn] batch wins from B={wins[0] if wins else 'none'} of "
+        f"{list(CN_BATCHES)}; cfg.engine.cn_batch_threshold is "
+        f"{rec.cfg.engine.cn_batch_threshold}")
+
+
+def phase_fused_step(rec, scoring) -> dict:
+    """4g: the fused scoring step, ``make_fused_step`` with the ``cuda``
+    engine (K4) against ``torch`` and the numpy twin, on the WGS sample's
+    unpacked pairs over its intervals and with the decoys first.  Returns
+    the launch counts of the ``cuda`` steps' run."""
+    import torch
+
+    from coral_tpu_torch.ops import kernels
+    from coral_tpu_torch.ops.scoring import make_fused_step, \
+        make_fused_step_numpy
+
+    table, pi, span = scoring["table"], scoring["pi"], scoring["span"]
+    cols = _unpacked_columns(table, pi, span)
+    reads = scoring["starts"], scoring["ends"]
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+           for a in (*reads, *cols)]
+    real = [list(iv) for iv in rec.amplicon_intervals]
+    lists = (("its intervals", real),
+             ("8,190 decoys first", decoy_intervals(N_DECOYS) + real))
+    tables = [_interval_arrays(ivs, span) for _, ivs in lists]
+    torch.cuda.synchronize()
+
+    # this path's run: counters from zero, the cuda steps only
+    kernels.reset_launches()
+    got = []
+    for ints in tables:
+        got.append(make_fused_step(*ints, "cuda", device="cuda")(*dev))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require(launches["pair6_support"] == len(lists),
+            f"K4 launches != steps: {launches}")
+
+    sample = slice(None, None, FUSED_SAMPLE)
+    for (name, ivs), ints, (sup_c, cov_c) in zip(lists, tables, got):
+        sup_t, cov_t = make_fused_step(*ints, "torch", device="cuda")(*dev)
+        require(torch.equal(sup_c, sup_t), f"{name}: cuda support != torch")
+        require(torch.equal(cov_c, cov_t), f"{name}: cuda coverage != torch")
+        sup_c, cov_c = sup_c.cpu().numpy(), cov_c.cpu().numpy()
+        require(np.array_equal(sup_c[-len(real):], scoring["support_v3"]),
+                f"{name}: support != K2's of 4a")
+        require(np.array_equal(cov_c[-len(real):], scoring["cov_v3"]),
+                f"{name}: coverage != 4a's")
+        # the numpy twin: every pair over the sample's intervals, every
+        # 64th over the long list, with the cuda and torch steps on those
+        part = sample if len(ivs) > len(real) else slice(None)
+        sub = [c[part] for c in cols]
+        sup_n, cov_n = make_fused_step_numpy(*ints)(*reads, *sub)
+        sub_dev = [torch.from_numpy(np.ascontiguousarray(c)).cuda()
+                   for c in sub]
+        for engine in ("cuda", "torch"):
+            s_e, c_e = make_fused_step(*ints, engine, device="cuda")(
+                *dev[:2], *sub_dev)
+            require(np.array_equal(s_e.cpu().numpy(), sup_n),
+                    f"{name}: {engine} support != numpy on the pairs "
+                    f"{part}")
+            require(np.array_equal(c_e.cpu().numpy(), cov_n),
+                    f"{name}: {engine} coverage != numpy")
+        step = make_fused_step(*ints, "cuda", device="cuda")
+        ms = cuda_ms(lambda: step(*dev))
+        log(f"[4g fused] {name} ({len(ivs)}), {len(pi)} pairs, "
+            f"{len(reads[0])} reads: cuda (K4) == torch, == numpy on "
+            f"{len(sub[0])} pairs; support of the sample's intervals "
+            f"{sup_c[-len(real):].tolist()} == K2's of 4a, coverage == 4a's;"
+            f" cuda step {ms:.4f} ms (packing, K4, int64 coverage tables)")
+    log(f"[4g fused] launches in the cuda steps' run: {launches}")
+    return launches
+
+
 # -- phase 5 --------------------------------------------------------------
 
 def phase_cycles(work: str) -> None:
@@ -1759,6 +2001,96 @@ def phase_cycles(work: str) -> None:
         f"{secs['numpy']:.2f}")
 
 
+# -- phase 6 --------------------------------------------------------------
+
+def _cycles_agree(path_a: str, path_b: str) -> bool:
+    """Two cycles files are the same line for line but for the copy
+    counts, which they print to the last bit (``repr``) and which agree to
+    rtol 1e-9: the decomposition reads CN values that two CN engines give
+    to the same printed digits, not to the same bits."""
+    pat = re.compile(r"Copy_count=([^;]+)")
+    with open(path_a) as fa, open(path_b) as fb:
+        lines_a, lines_b = fa.read().splitlines(), fb.read().splitlines()
+    if len(lines_a) != len(lines_b):
+        return False
+    for a, b in zip(lines_a, lines_b):
+        ca, cb = pat.findall(a), pat.findall(b)
+        if pat.sub("", a) != pat.sub("", b) or len(ca) != len(cb):
+            return False
+        if not np.allclose(np.float64(ca), np.float64(cb), rtol=1e-9,
+                           atol=0):
+            return False
+    return True
+
+
+def phase_user_pipeline(work: str) -> None:
+    """``seed`` -> ``reconstruct`` (``cuda``, ``batch``; and ``numpy``,
+    ``numpy``) -> ``cycle2bed`` through the port's CLI."""
+    from coral_tpu_torch.sim import simulate_mixed_sample
+
+    bam, cns, _ = simulate_mixed_sample(work, seed=3)
+
+    def cli(*args):
+        subprocess.run([sys.executable, "-m", "coral_tpu_torch", *args],
+                       cwd=ROOT, check=True, stdout=subprocess.DEVNULL,
+                       timeout=600)
+
+    seeds = os.path.join(work, "seeds.bed")
+    cli("seed", "--cn_seg", cns, "--out", seeds)
+    with open(seeds) as fh:
+        n_seeds = len(fh.read().splitlines())
+    require(n_seeds > 0, "seed wrote no interval")
+    secs = {}
+    for name, engine, cn_engine in (("dev", "cuda", "batch"),
+                                    ("host", "numpy", "numpy"),
+                                    ("hostb", "numpy", "batch")):
+        t0 = time.perf_counter()
+        cli("reconstruct", "--lr_bam", bam, "--cnv_seed", seeds,
+            "--cn_seg", cns, "--output_prefix", os.path.join(work, name),
+            "--engine", engine, "--cn_engine", cn_engine, "--device", "cuda",
+            "--log_fn", os.path.join(work, f"{name}.log"))
+        secs[name] = time.perf_counter() - t0
+    outs = sorted(f for f in os.listdir(work) if f.startswith("dev_")
+                  and f.endswith(("_graph.txt", "_cycles.txt")))
+    cycles = [f for f in outs if f.endswith("_cycles.txt")]
+    require(cycles, "no cycles files")
+    for f in outs:
+        require(filecmp.cmp(os.path.join(work, f),
+                            os.path.join(work, "hostb" + f[3:]),
+                            shallow=False), f"{f}: cuda+batch != numpy+batch")
+        if f.endswith("_graph.txt"):
+            require(filecmp.cmp(os.path.join(work, f),
+                                os.path.join(work, "host" + f[3:]),
+                                shallow=False), f"{f}: cuda+batch != numpy")
+        else:
+            require(_cycles_agree(os.path.join(work, f),
+                                  os.path.join(work, "host" + f[3:])),
+                    f"{f}: cuda+batch cycles != numpy's")
+    with open(os.path.join(work, "dev.log")) as fh:
+        text = fh.read()
+    require("CN balance route: engine=batch" in text,
+            "the CLI run did not take the batch CN engine")
+    require(any("pair scoring route" in ln and "engine=cuda" in ln
+                for ln in text.splitlines()),
+            "the CLI run did not score with cuda")
+    n_rows = 0
+    for f in cycles:
+        for flags in ([], ["--rotate_to_min"]):
+            bed = os.path.join(work, f"{f}{len(flags)}.bed")
+            cli("cycle2bed", "--cycle_fn", os.path.join(work, f),
+                "--output_fn", bed, *flags)
+            with open(bed) as fh:
+                rows = [ln for ln in fh if not ln.startswith("#")]
+            require(rows, f"cycle2bed wrote no row for {f}")
+            n_rows += len(rows)
+    log(f"[6 pipeline] mixed sample: seed wrote {n_seeds} intervals; "
+        f"reconstruct from them: {len(outs)} graph+cycles files identical "
+        f"cuda+batch == numpy+batch, graph files identical to numpy+numpy "
+        f"and its cycles files but for copy counts within rtol 1e-9 (CLI s "
+        f"{secs['dev']:.2f} / {secs['host']:.2f} / {secs['hostb']:.2f}); "
+        f"cycle2bed, plain and rotated, {n_rows} rows")
+
+
 def main() -> int:
     try:
         import torch
@@ -1782,11 +2114,15 @@ def main() -> int:
         launches6 = phase_six_column_path(rec, scoring, report)
         launches2 = phase_v2_path(rec, scoring, report)
         launches_bins = phase_coverage_path(rec, report)
+        phase_cn_batch(rec, scoring, work)
+        phase_fused_step(rec, scoring)
         rec.bam.close()
     with tempfile.TemporaryDirectory() as work:
         launches_match = phase_cluster_path(work, report)
     with tempfile.TemporaryDirectory() as work:
         phase_cycles(work)
+    with tempfile.TemporaryDirectory() as work:
+        phase_user_pipeline(work)
     banned = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "coral_tpu")]
     require(not banned, f"imported: {banned}")

@@ -107,28 +107,31 @@ def pair_predicate_np(
     return hit, io_i
 
 
+def _int32(a):
+    """numpy array or tensor -> int32, integers wrapping to their low 32
+    bits."""
+    return a.to(torch.int32) if isinstance(a, torch.Tensor) \
+        else a.astype(np.int32)
+
+
 def pack_pair_cols(qi_end, qj_start, chrom_i, r1_i, r2_i, strand_i,
                    mapq_i, chrom_j, r1_j, r2_j, strand_j, mapq_j):
-    """Pack the 12 predicate columns (numpy) into the 6-column layout
-    (:data:`PACKED_COL_ORDER`), the host twin of the native
-    ``bamcore.pack_pairs``.  ``chrom`` is a CHR_IDX code (-1 = unknown,
-    stored +1); ``mapq`` clamps to the BAM uint8 domain so that an
-    unvalidated SA-tag value cannot overflow into the chrom field;
-    ``strand`` is +1/-1.  There is no NM slot: the packed routes exist for
-    ``max_nm=inf``."""
-    i32 = np.int32
-
+    """Pack the 12 predicate columns (numpy arrays, or tensors on one
+    device) into the 6-column layout (:data:`PACKED_COL_ORDER`), the host
+    twin of the native ``bamcore.pack_pairs``.  ``chrom`` is a CHR_IDX
+    code (-1 = unknown, stored +1); ``mapq`` clamps to the BAM uint8
+    domain so that an unvalidated SA-tag value cannot overflow into the
+    chrom field; ``strand`` is +1/-1.  There is no NM slot: the packed
+    routes exist for ``max_nm=inf``."""
     def side(chrom, strand, mapq):
-        mapq = np.clip(mapq.astype(i32), 0, 255)
-        return ((chrom.astype(i32) + 1) << META_CHROM_SHIFT) \
-            | (mapq << META_MAPQ_SHIFT) \
-            | (strand > 0).astype(i32)
+        return ((_int32(chrom) + 1) << META_CHROM_SHIFT) \
+            | (_int32(mapq).clip(0, 255) << META_MAPQ_SHIFT) \
+            | _int32(strand > 0)
 
-    qgap = (qj_start - qi_end).astype(i32)
     meta = (side(chrom_i, strand_i, mapq_i) << META_SIDE_BITS) \
         | side(chrom_j, strand_j, mapq_j)
-    return (qgap, r1_i.astype(i32), r2_i.astype(i32),
-            r1_j.astype(i32), r2_j.astype(i32), meta)
+    return (_int32(qj_start - qi_end), _int32(r1_i), _int32(r2_i),
+            _int32(r1_j), _int32(r2_j), meta)
 
 
 def _unpack_sides(meta, sign):
@@ -496,6 +499,11 @@ def state_from_numpy(int_chrom, int_start, int_end, packed, *,
         tuple(as_tensor(c, dev, torch.int32) for c in packed))
 
 
+# the predicate's scalars where a scorer is not given them
+SCORING_DEFAULTS = dict(min_bp_match_cutoff=100, min_mapq=20, gap_=100.0,
+                        max_nm=math.inf)
+
+
 def make_batch_scorer(int_chrom, int_start, int_end, engine: str = "torch",
                       *, device, **scalars):
     """Product-shaped scorer (``coral_tpu.ops.scoring.make_batch_scorer_jax``):
@@ -527,8 +535,7 @@ def make_batch_scorer(int_chrom, int_start, int_end, engine: str = "torch",
     is_ = as_tensor(int_start, dev, torch.int64)
     ie = as_tensor(int_end, dev, torch.int64)
     n_int = int(ic.shape[0])
-    params = {**dict(min_bp_match_cutoff=100, min_mapq=20, gap_=100.0,
-                     max_nm=math.inf), **scalars}
+    params = {**SCORING_DEFAULTS, **scalars}
 
     def build_tables(starts, ends):
         return coverage_prefix_tables(as_tensor(starts, dev),
@@ -595,3 +602,79 @@ def make_batch_scorer(int_chrom, int_start, int_end, engine: str = "torch",
         return support.to(torch.int32), cov(tables)
 
     return build_tables, score
+
+
+def make_fused_step(int_chrom, int_start, int_end, engine: str = "torch",
+                    *, device, **scalars):
+    """The fused scoring step (``coral_tpu.ops.scoring.make_fused_step_jax``,
+    the step ``fused_scoring_step`` runs): the 14-column junction predicate
+    with the NM gate, the per-interval support histogram and the
+    per-interval aligned-base coverage, with the interval table closed
+    over.
+
+    Returns ``step(starts, ends, *cols)`` over the read spans and the 14
+    columns of :data:`COL_ORDER` (numpy arrays or tensors) ->
+    ``(support int32 (n_int,), coverage int64 (n_int,))``, tensors on
+    ``device``.  Coverage is exact int64 from :func:`coverage_prefix_tables`
+    built in each call, as the JAX step builds its tables.
+
+    ``engine='torch'``: :func:`pair_predicate` and a bincount.
+    ``engine='cuda'``: the columns packed into the 6-column layout on the
+    device (:func:`pack_pair_cols`) and K4 (``kernels.pair6_support``),
+    its interval index built once here above
+    ``kernels.PAIR6_SCAN_MAX_INTERVALS`` intervals; the layout has no NM
+    slot, so a finite ``max_nm`` raises, as the JAX package's Pallas
+    scorers require ``max_nm=inf``."""
+    params = {**SCORING_DEFAULTS, **scalars}
+    if engine == "cuda":
+        if not math.isinf(params["max_nm"]):
+            raise ValueError(
+                "engine='cuda' (K4 over the 6-column layout) has no NM gate: "
+                f"max_nm={params['max_nm']!r} needs engine='torch'")
+        scorer = "cuda6"
+    elif engine == "torch":
+        scorer = "torch"
+    else:
+        raise ValueError(f"unknown engine {engine!r} (torch or cuda)")
+    dev = resolve_device(device)
+    build_tables, score = make_batch_scorer(int_chrom, int_start, int_end,
+                                            scorer, device=dev, **params)
+    nm_cols = (COL_ORDER.index("nm_i"), COL_ORDER.index("nm_j"))
+
+    def step(starts, ends, *cols):
+        if len(cols) != len(COL_ORDER):
+            raise ValueError(f"{len(cols)} pair columns, not the "
+                             f"{len(COL_ORDER)} of COL_ORDER")
+        cols = [as_tensor(c, dev) for c in cols]
+        if engine == "cuda":
+            cols = pack_pair_cols(*(c for k, c in enumerate(cols)
+                                    if k not in nm_cols))
+        return score(build_tables(starts, ends), *cols)
+
+    return step
+
+
+def make_fused_step_numpy(int_chrom, int_start, int_end, **scalars):
+    """Host twin of :func:`make_fused_step`
+    (``coral_tpu.ops.scoring.make_fused_step_numpy``):
+    :func:`pair_predicate_np` and ``np.bincount``, with exact int64
+    coverage from :func:`coverage_prefix_tables` on the CPU.  Returns
+    ``step(starts, ends, *cols)`` -> (support int32, coverage int64)
+    numpy arrays."""
+    params = {**SCORING_DEFAULTS, **scalars}
+    ic, is_, ie = (np.asarray(a) for a in (int_chrom, int_start, int_end))
+    n_int = len(ic)
+    bounds = (torch.from_numpy(ie.astype(np.int64)),
+              torch.from_numpy(is_.astype(np.int64)))
+
+    def step(starts, ends, *cols):
+        hit, io = pair_predicate_np(*(np.asarray(c) for c in cols),
+                                    ic, is_, ie, **params)
+        support = np.bincount(io[hit], minlength=n_int)[:n_int]
+        tables = coverage_prefix_tables(
+            *(torch.from_numpy(np.asarray(a)) for a in (starts, ends)))
+        cov = coverage_prefix_eval(tables, bounds[0]) \
+            - coverage_prefix_eval(tables, bounds[1])
+        return support.astype(np.int32), cov.numpy()
+
+    return step

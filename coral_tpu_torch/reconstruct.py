@@ -1409,15 +1409,23 @@ class Reconstruction:
     def compute_cn(self, engine: Optional[str] = None) -> None:
         """CN balance for every amplicon graph; default is the config's
         ``cn_engine``, resolved by
-        :func:`coral_tpu_torch.graph.cn_solver.resolve_cn_engine`, and the
-        ``torch`` engine solves on the run's ``device``."""
-        from .graph.cn_solver import resolve_cn_engine
+        :func:`coral_tpu_torch.graph.cn_solver.resolve_cn_engine` (``auto``
+        is ``batch`` from ``cfg.engine.cn_batch_threshold`` amplicons up).
+        The ``torch`` engine solves each graph on the run's ``device``, and
+        ``batch`` solves them all there together."""
+        from .graph.cn_solver import compute_cn_batch, resolve_cn_engine
 
         if engine is None:
             engine = self.cfg.engine.cn_engine
-        engine = resolve_cn_engine(engine)
+        engine = resolve_cn_engine(
+            engine, len(self.graphs),
+            batch_threshold=self.cfg.engine.cn_batch_threshold)
         logger.info("CN balance route: engine=%s (%d amplicons)",
                     engine, len(self.graphs))
+        if engine == "batch":
+            compute_cn_batch(self.graphs, self.normal_cov,
+                             self.cfg.cn.max_iters, device=self.device)
+            return
         for g in self.graphs:
             compute_cn(g, self.normal_cov, self.cfg.cn.max_iters,
                        engine=engine, device=self.device)

@@ -60,9 +60,13 @@ def test_torch_engine_matches_numpy(k, scale, seed):
 
 
 def test_engines_resolve_and_reject():
-    assert tc.resolve_cn_engine("auto") == "numpy"
-    assert tc.resolve_cn_engine("torch") == "torch"
+    assert tc.resolve_cn_engine("auto", 1) == "numpy"
+    assert tc.resolve_cn_engine("auto", 32) == "batch"
+    assert tc.resolve_cn_engine("torch", 32) == "torch"
+    with pytest.raises(ValueError):
+        tc.resolve_cn_engine("jax", 1)
     sys_ = _chain_system(np.random.default_rng(0), 3)
+    # batch solves many systems (compute_cn_batch), not one
     with pytest.raises(ValueError):
         tc.solve_cn_balance(*sys_, engine="batch", device="cpu")
 

@@ -52,6 +52,13 @@ COPIES = {
     "cycles/colgen.py": ((), ("cycle_decomposition.py:179-332",
                               "an admissible bound otherwise")),
     "cycles/refmodel.py": ((), ()),
+    "annotations.py": ((), ()),
+    "annotations_bushman.py": ((), ()),
+    "seed.py": ((), ()),
+    "cycle2bed.py": ((), ()),
+    "hsr.py": ((), ()),
+    "plot/__init__.py": ((), ()),
+    "plot/plot_amplicons.py": ((), ()),
 }
 
 

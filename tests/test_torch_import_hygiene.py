@@ -162,3 +162,37 @@ def test_no_import_of_the_jax_package_in_the_sources():
             bad += [f"{os.path.relpath(path, ROOT)}:{i}: {ln.rstrip()}"
                     for i, ln in enumerate(fh, 1) if pat.match(ln)]
     assert not bad, "\n".join(bad)
+
+
+def test_user_pipeline_runs_without_jax_or_matplotlib(tmp_path):
+    """``seed`` -> ``reconstruct --cn_engine batch`` -> ``cycle2bed``
+    through the port's CLI on the CPU, with matplotlib blocked as well:
+    the machine with the card has none, and only ``hsr`` and ``plot``
+    need it."""
+    _run(r'''
+import os
+
+BLOCKED = BLOCKED + ("matplotlib",)
+from coral_tpu_torch.cli import main
+from coral_tpu_torch.sim import simulate_ecdna
+
+out = %r
+bam, cns, _ = simulate_ecdna(out, jitter=0)
+seeds = os.path.join(out, "seeds.bed")
+assert main(["seed", "--cn_seg", cns, "--out", seeds]) == 0
+with open(seeds) as fh:
+    assert fh.read().strip()
+prefix = os.path.join(out, "p")
+assert main(["reconstruct", "--lr_bam", bam, "--cnv_seed", seeds,
+             "--cn_seg", cns, "--output_prefix", prefix, "--engine", "torch",
+             "--cn_engine", "batch", "--device", "cpu",
+             "--log_fn", os.path.join(out, "p.log")]) == 0
+with open(os.path.join(out, "p.log")) as fh:
+    assert "CN balance route: engine=batch" in fh.read()
+for flags in ([], ["--rotate_to_min"]):
+    bed = os.path.join(out, "c%%d.bed" %% len(flags))
+    assert main(["cycle2bed", "--cycle_fn", prefix + "_amplicon1_cycles.txt",
+                 "--output_fn", bed, *flags]) == 0
+    with open(bed) as fh:
+        assert [ln for ln in fh if not ln.startswith("#")]
+''' % str(tmp_path), tmp_path)
