@@ -68,7 +68,27 @@ exits non-zero:
    files byte-identical), and ``cycle2bed`` on the cycles with and without
    ``--rotate_to_min``.  ``hsr`` and ``plot`` need matplotlib, which the
    machine with the card may not have; they run no device code, and the
-   CPU tests hold them to the JAX package's.
+   CPU tests hold them to the JAX package's;
+7. the mesh and multi-process layer (``coral_tpu_torch.parallel``) on the
+   WGS sample, every result against the single-device one:
+   ``score_pairs_sharded`` over 1, 2 and 4 shards of the card with the
+   ``cuda`` engine (K1 per shard over the sample's 10 intervals, K3 per
+   shard over 8,200 with the decoys first, the index built once a call)
+   and over 4 with ``torch``, hit masks bit-equal; ``reconstruct_graphs``
+   on a mesh of the card, graph files byte-identical; K8 per shard
+   through ``bin_coverage_sharded`` over 4 read shards and a 2 x 2 mesh
+   that splits the bins, equal in int64; the batch CN engine over 4
+   shards, every digit; the BAM split into 2 and 4 shards, each scanned
+   by its own process, through ``multihost_reconstruct_graphs`` (graph
+   files byte-identical) and its scan and merge twice more alone (timed
+   three times in all against 4a's scan+collect); a 2-process gloo group
+   on the card
+   through the pipeline worker on the mixed sample (each rank's graph and
+   cycles files byte-identical to the single-process run); a 1-process
+   nccl group (``allreduce_sum``, ``allgather_bytes``,
+   ``shard_bin_histogram`` with K8), and two nccl ranks on the one card,
+   which must both raise.  Launches of K1, K3, the index and K8 in these
+   paths are counted and added to theirs.
 
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Nothing here
@@ -1427,7 +1447,8 @@ def phase_main_path(work: str):
     log(f"[4a wgs] launches in the main path's run: {launches}")
     scoring = dict(table=table, pi=pi, starts=starts, ends=ends, span=span,
                    hit_v3=hit_k.cpu().numpy(), support_v3=support, cov_v3=cov,
-                   before_cn=before_cn, stages=st_c)
+                   before_cn=before_cn, stages=st_c, stages_numpy=st_n,
+                   inputs=(bam, cns, seeds), cfg=cfg("cuda"))
     return rec_c, launches, errs, scoring
 
 
@@ -1816,6 +1837,13 @@ def chain_cn_system(rng, k: int):
     return wlrseg, wcn, wlncn, A
 
 
+def chain_cn_systems():
+    """Phase 4f's seeded chain systems, 3 to 120 segments each."""
+    rng = np.random.default_rng(43)
+    return [chain_cn_system(rng, int(k))
+            for k in rng.integers(3, 121, CN_SYSTEMS)]
+
+
 def _digits(x):
     return ["%f" % (2 * v) for v in x]
 
@@ -1864,9 +1892,7 @@ def phase_cn_batch(rec, scoring, work: str) -> None:
         f"auto) {st['cn']:.4f} s of graph+cn+write {st['graph+cn+write']:.3f}"
         f" s ({st['cn'] / st['graph+cn+write']:.3f})")
 
-    rng = np.random.default_rng(43)
-    systems = [chain_cn_system(rng, int(k))
-               for k in rng.integers(3, 121, CN_SYSTEMS)]
+    systems = chain_cn_systems()
     torch.cuda.reset_peak_memory_stats()
     xs = cn_solver.solve_cn_balance_batch(systems, device="cuda")
     peak = torch.cuda.max_memory_allocated()
@@ -2091,6 +2117,330 @@ def phase_user_pipeline(work: str) -> None:
         f"cycle2bed, plain and rotated, {n_rows} rows")
 
 
+# -- phase 7 --------------------------------------------------------------
+
+MESH_SHARDS = (1, 2, 4)   # shards of cuda:0 for pair scoring
+BIN_SHARDS = 4            # read shards for coverage (and a 2 x 2 mesh)
+SCAN_SHARDS = (2, 4)      # BAM shards, one scanning process each
+SCAN_RUNS = 3
+
+
+def _same_files(dir_a, prefix_a, dir_b, prefix_b, kinds=("graph",)):
+    """The ``*_amplicon<k>_<kind>.txt`` files under ``prefix_a`` equal those
+    under ``prefix_b``, byte for byte; returns how many were compared."""
+    names = sorted(f[len(prefix_a):] for f in os.listdir(dir_a)
+                   if f.startswith(prefix_a + "_amplicon")
+                   and f.endswith(tuple(f"_{k}.txt" for k in kinds)))
+    require(names, f"no output files under {prefix_a}")
+    for name in names:
+        require(filecmp.cmp(os.path.join(dir_a, prefix_a + name),
+                            os.path.join(dir_b, prefix_b + name),
+                            shallow=False),
+                f"{prefix_a}{name} != {prefix_b}{name}")
+    return len(names)
+
+
+@contextlib.contextmanager
+def merge_ends(multihost, into: list):
+    """While active, the time at which each ``merge_scan_products`` inside
+    ``multihost_reconstruct_graphs`` returns is appended to ``into``."""
+    inner = multihost.merge_scan_products
+
+    def timed(*args, **kw):
+        out = inner(*args, **kw)
+        into.append(time.perf_counter())
+        return out
+
+    multihost.merge_scan_products = timed
+    try:
+        yield
+    finally:
+        multihost.merge_scan_products = inner
+
+
+def _scan_and_merge(multihost, shards):
+    """The first half of ``multihost_reconstruct_graphs`` alone: the shards
+    scanned by a spawn pool, the shard view opened, the products merged.
+    Returns (seconds, chimeric reads)."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(len(shards)) as pool:
+        parts = pool.map(multihost.scan_shard, list(shards))
+    view = multihost.MultiShardBam(shards)
+    _, chimeras, _ = multihost.merge_scan_products(parts, shards=view.shards)
+    t = time.perf_counter() - t0
+    view.close()
+    return t, len(chimeras)
+
+
+def _spread(xs):
+    return (f"median {np.median(xs):.3f} (min {min(xs):.3f}, max "
+            f"{max(xs):.3f}; {' '.join(f'{x:.3f}' for x in xs)})")
+
+
+def _run_ranks(argv_of_rank, n: int, work: str, timeout: int):
+    """One process a rank; returns their (returncode, stdout, stderr),
+    every process killed if any outlives ``timeout`` s."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen([sys.executable, *argv_of_rank(r)], cwd=work,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(n)]
+    out = []
+    try:
+        for p in procs:
+            sout, serr = p.communicate(timeout=timeout)
+            out.append((p.returncode, sout, serr))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def phase_parallel(rec, scoring, work: str):
+    """7: the mesh and multi-process layer on the card.  Pair scoring
+    sharded over 1, 2 and 4 shards of cuda:0 (K1 over the sample's 10
+    intervals, K3 over 8,200 with the decoys first, the torch engine),
+    reconstruct on a mesh, bin coverage over 4 read shards and a 2 x 2
+    mesh (K8), the batch CN engine over 4 shards, the BAM split into 2 and
+    4 shards scanned by as many processes, a 2-process gloo group through
+    the pipeline worker, and a 1-process nccl group.  Returns the launch
+    counts of this phase's sharded paths."""
+    import torch
+    import torch.distributed as tdist
+
+    from coral_tpu_torch.graph import cn_solver
+    from coral_tpu_torch.ops import kernels
+    from coral_tpu_torch.ops.coverage import bin_coverage, \
+        bin_coverage_sharded
+    from coral_tpu_torch.ops.pairs import score_pairs_l
+    from coral_tpu_torch.parallel import distributed, make_mesh, multihost
+    from coral_tpu_torch.parallel.mesh import Mesh
+    from coral_tpu_torch.parallel.sharded import score_pairs_sharded
+    from coral_tpu_torch.reconstruct import reconstruct_cycles, \
+        reconstruct_graphs
+    from coral_tpu_torch.sim import simulate_mixed_sample
+
+    cfg_b = rec.cfg.bp
+    table = scoring["table"]
+    bam, cns, seeds = scoring["inputs"]
+    real = [list(iv) for iv in rec.amplicon_intervals]
+    lists = {"10 intervals (K1)": real,
+             "8,200 decoys first (K3)": decoy_intervals(N_DECOYS) + real}
+    args = (cfg_b.min_bp_match_cutoff, cfg_b.min_mapq, 100)
+    n_bins = -(-WGS_CHR_LEN // COVERAGE_BIN)
+    spans = []
+    for rid in range(len(rec.bam.references)):
+        rows = rec.bam.ref_id == rid
+        spans.append((rec.bam.pos[rows].astype(np.int32),
+                      rec.bam.end[rows].astype(np.int32)))
+    systems = chain_cn_systems()
+
+    # what the sharded paths are held to: one device, before the counts
+    # are set to zero
+    single, t_single = {}, {}
+    for name, ivs in lists.items():
+        t0 = time.perf_counter()
+        single[name] = score_pairs_l(table, ivs, *args, engine="cuda",
+                                     device="cuda")[2]
+        t_single[name] = time.perf_counter() - t0
+    require(np.array_equal(single["10 intervals (K1)"],
+                           single["8,200 decoys first (K3)"]),
+            "K1 and K3 routes disagree on one device")
+    hists = [bin_coverage(s, e, 0, COVERAGE_BIN, n_bins, engine="cuda",
+                          device="cuda") for s, e in spans]
+    xs_single = cn_solver.solve_cn_balance_batch(systems, device="cuda")
+    graphs_single = copy.deepcopy(scoring["before_cn"])
+    cn_solver.compute_cn_batch(graphs_single, rec.normal_cov, device="cuda")
+
+    def cn_digits(graphs):
+        return [["%f" % e.cn for edges in (g.sequence_edges,
+                                           g.concordant_edges,
+                                           g.discordant_edges, g.source_edges)
+                 for e in edges] for g in graphs]
+
+    kernels.reset_launches()
+    # pair scoring over shards of the one card
+    t_shard = {}
+    for name, ivs in lists.items():
+        for n in MESH_SHARDS:
+            mesh = make_mesh(devices=["cuda:0"] * n)
+            t0 = time.perf_counter()
+            hit = score_pairs_sharded(table, ivs, *args, mesh,
+                                      engine="cuda")[2]
+            t_shard[name, n] = time.perf_counter() - t0
+            require(np.array_equal(hit, single[name]),
+                    f"score_pairs_sharded(cuda), {n} shards, {name} != one "
+                    "device")
+    t0 = time.perf_counter()
+    hit = score_pairs_sharded(table, real, *args,
+                              make_mesh(devices=["cuda:0"] * 4),
+                              engine="torch")[2]
+    t_torch = time.perf_counter() - t0
+    require(np.array_equal(hit, single["10 intervals (K1)"]),
+            "score_pairs_sharded(torch), 4 shards != one device")
+    log(f"[7 parallel] score_pairs_sharded == score_pairs_l on one device "
+        f"over {len(hit)} pairs, host s: " + "; ".join(
+            f"{name}: one device {t_single[name]:.3f}, " + ", ".join(
+                f"{n} shards {t_shard[name, n]:.3f}" for n in MESH_SHARDS)
+            for name in lists) + f"; torch engine, 4 shards {t_torch:.3f}")
+
+    # reconstruct with pair scoring and CN on a mesh of one card
+    t0 = time.perf_counter()
+    rec_m = reconstruct_graphs(bam, seeds, cns, os.path.join(work, "mesh"),
+                               cfg=scoring["cfg"],
+                               mesh=make_mesh(devices=["cuda:0"]),
+                               device="cuda")
+    rec_m.bam.close()
+    t_mesh = time.perf_counter() - t0
+    n_files = _same_files(work, "mesh", work, "cuda")
+    log(f"[7 parallel] reconstruct_graphs(mesh=[cuda:0]): {n_files} graph "
+        f"files identical to 4a's run without a mesh; {t_mesh:.3f} s")
+
+    # coverage over read shards, and over a 2 x 2 mesh splitting the bins
+    devs = np.empty(4, dtype=object)
+    devs[:] = [torch.device("cuda:0")] * 4
+    meshes = {f"{BIN_SHARDS} read shards":
+              (make_mesh(devices=["cuda:0"] * BIN_SHARDS), None),
+              "2 x 2 (reads x bins)": (Mesh(devs.reshape(2, 2),
+                                            ("dp", "sp")), "sp")}
+    t_bins = {}
+    for name, (mesh, genome_axis) in meshes.items():
+        t0 = time.perf_counter()
+        for (s, e), want in zip(spans, hists):
+            got = bin_coverage_sharded(s, e, 0, COVERAGE_BIN, n_bins, mesh,
+                                       genome_axis=genome_axis,
+                                       engine="cuda")
+            require(got.dtype == np.int64 and np.array_equal(got, want),
+                    f"bin_coverage_sharded, {name} != bin_coverage")
+        t_bins[name] = time.perf_counter() - t0
+    log(f"[7 parallel] bin_coverage_sharded(cuda) == bin_coverage on "
+        f"{len(spans)} chromosomes x {n_bins} bins, s: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in t_bins.items()))
+
+    # the batch CN engine over four shards of the card
+    mesh4 = make_mesh(devices=["cuda:0"] * 4)
+    t0 = time.perf_counter()
+    xs = cn_solver.solve_cn_balance_batch(systems, mesh=mesh4)
+    t_cn = time.perf_counter() - t0
+    require(all(_digits(a) == _digits(b) for a, b in zip(xs, xs_single))
+            and len(xs) == len(xs_single),
+            "CN over 4 shards != one batch in a digit")
+    graphs = copy.deepcopy(scoring["before_cn"])
+    cn_solver.compute_cn_batch(graphs, rec.normal_cov, mesh=mesh4)
+    require(cn_digits(graphs) == cn_digits(graphs_single),
+            "compute_cn_batch over 4 shards != one batch in a digit")
+    log(f"[7 parallel] CN batch over 4 shards: {len(systems)} chain systems "
+        f"({t_cn:.3f} s) and the sample's {len(graphs)} graphs, every digit "
+        "of the single batch")
+
+    # the BAM split into shards, one scanning process each: the whole
+    # pipeline once (its scan and merge timed), then the scan and merge
+    # alone until there are SCAN_RUNS times
+    scan_s = {}
+    for k in SCAN_SHARDS:
+        t0 = time.perf_counter()
+        shards = multihost.split_bam(
+            bam, [os.path.join(work, f"wgs{k}_s{i}.bam") for i in range(k)])
+        t_split = time.perf_counter() - t0
+        ends = []
+        t0 = time.perf_counter()
+        with merge_ends(multihost, ends):
+            rec_h = multihost.multihost_reconstruct_graphs(
+                shards, seeds, cns, os.path.join(work, f"mh{k}"),
+                cfg=scoring["cfg"], device="cuda")
+        t_all = time.perf_counter() - t0
+        rec_h.bam.close()
+        require(len(ends) == 1, "merge_scan_products not called once")
+        _same_files(work, f"mh{k}", work, "cuda")
+        scan_s[k] = [ends[0] - t0]
+        for _ in range(SCAN_RUNS - 1):
+            t, n_chim = _scan_and_merge(multihost, shards)
+            require(n_chim == len(rec_h.chimeras),
+                    "the scan and merge alone found other chimeras")
+            scan_s[k].append(t)
+        log(f"[7 scan] {k} shards: split {t_split:.3f} s; "
+            f"multihost_reconstruct_graphs {t_all:.3f} s, graph files "
+            f"identical to 4a's")
+    st = scoring["stages"]
+    log("[7 scan] fanned-out scan + merge, s: " + "; ".join(
+        f"{k} shards {_spread(v)}" for k, v in scan_s.items())
+        + f"; 4a's single-process scan+collect cuda "
+        f"{st['scan+collect']:.3f}, numpy "
+        f"{scoring['stages_numpy']['scan+collect']:.3f}")
+    launches = dict(kernels.LAUNCHES)
+
+    # a 1-process nccl group: the sum stays on the card, K8 per process
+    distributed.initialize("file://" + os.path.join(work, "rdzv_nccl"), 1,
+                           0, backend="nccl", device="cuda:0")
+    kernels.reset_launches()
+    try:
+        total = distributed.allreduce_sum(np.array([2**40 + 5, -7]))
+        require(total.tolist() == [2**40 + 5, -7], f"allreduce: {total}")
+        require(distributed.allgather_bytes(b"nccl") == [b"nccl"],
+                "allgather_bytes")
+        hist = distributed.shard_bin_histogram(bam, WGS_CHROMS[0], 0,
+                                               COVERAGE_BIN, n_bins)
+        require(np.array_equal(hist, hists[0]),
+                "shard_bin_histogram (nccl) != bin_coverage")
+    finally:
+        tdist.destroy_process_group()
+    for k, v in kernels.LAUNCHES.items():
+        launches[k] += v
+    log(f"[7 nccl] 1-process group: allreduce_sum int64, allgather_bytes, "
+        f"shard_bin_histogram of {WGS_CHROMS[0]} == bin_coverage")
+    # two ranks on the one card: refused before any nccl collective
+    code = ("import sys\nfrom coral_tpu_torch.parallel.distributed import "
+            "initialize\ninitialize(sys.argv[1], 2, int(sys.argv[2]), "
+            "backend='nccl', device='cuda:0')\n")
+    rdzv = "file://" + os.path.join(work, "rdzv_nccl2")
+    outs = _run_ranks(lambda r: ["-c", code, rdzv, str(r)], 2, work, 300)
+    require(all(rc != 0 and "one card per process" in err
+                for rc, _, err in outs),
+            f"nccl with two ranks on one card did not raise: {outs}")
+    log("[7 nccl] two ranks on one card: both raise 'one card per process'")
+
+    # a 2-process gloo group, both ranks on the card, through the pipeline
+    # worker: on the mixed sample (the WGS sample's Python merge repeated
+    # in each rank would add more than 150 s; PERF.md section 4)
+    mixed = os.path.join(work, "mixed")
+    os.makedirs(mixed)
+    m_bam, m_cns, m_seeds = simulate_mixed_sample(mixed, seed=3)
+    rec_s = reconstruct_graphs(m_bam, m_seeds, m_cns,
+                               os.path.join(mixed, "single"), device="cuda")
+    reconstruct_cycles(rec_s, os.path.join(mixed, "single"))
+    rec_s.bam.close()
+    shards = multihost.split_bam(
+        m_bam, [os.path.join(mixed, f"s{i}.bam") for i in range(2)])
+    rdzv = "file://" + os.path.join(mixed, "rdzv_gloo")
+    t0 = time.perf_counter()
+    outs = _run_ranks(lambda r: [
+        "-m", "coral_tpu_torch.parallel.distributed", "pipeline", str(r),
+        "2", rdzv, "gloo", "cuda:0", m_seeds, m_cns,
+        os.path.join(mixed, "dist"), *shards], 2, mixed, 600)
+    t_group = time.perf_counter() - t0
+    for r, (rc, sout, serr) in enumerate(outs):
+        require(rc == 0, f"gloo rank {r} failed:\n{sout}\n{serr[-3000:]}")
+        n_files = _same_files(mixed, f"dist.p{r}", mixed, "single",
+                              ("graph", "cycles"))
+    log(f"[7 gloo] 2 processes on cuda:0, mixed sample: each rank's "
+        f"{n_files} graph and cycles files identical to the single-process "
+        f"run; {t_group:.3f} s")
+    log(f"[7 parallel] launches in this phase's sharded paths: {launches}")
+    # K1 per shard, once on the mesh of one card, once a multihost run; K3
+    # per shard and its index once a call; K8 per shard and chromosome
+    expect = {"pair3": sum(MESH_SHARDS) + 1 + len(SCAN_SHARDS),
+              "pair6": sum(MESH_SHARDS), "interval_index": len(MESH_SHARDS),
+              "bin_overlap": 2 * BIN_SHARDS * len(spans) + 1}
+    for k, want in expect.items():
+        require(launches[k] == want,
+                f"{k}: {launches[k]} launches, {want} expected")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2116,6 +2466,7 @@ def main() -> int:
         launches_bins = phase_coverage_path(rec, report)
         phase_cn_batch(rec, scoring, work)
         phase_fused_step(rec, scoring)
+        launches_par = phase_parallel(rec, scoring, work)
         rec.bam.close()
     with tempfile.TemporaryDirectory() as work:
         launches_match = phase_cluster_path(work, report)
@@ -2133,13 +2484,15 @@ def main() -> int:
                "stream_control": launches, "pair2": launches2,
                "pair2_support": launches2, "bin_overlap": launches_bins,
                "match_matrix": launches_match, "interval_index": launches6}
+    # and phase 7's sharded paths: K1, K3, the index, K8
     kern = []
     for name, (source, replaces) in KERNELS.items():
         rows = report[name]
         last = rows[-1]
         err = max([r["max_abs_err"] for r in rows] + [wgs_errs.get(name, 0)])
         kern.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": counted[name][name],
+                     "replaces": replaces,
+                     "launches": counted[name][name] + launches_par[name],
                      "max_abs_err": err, "ms": last["ms"],
                      "plain_ms": last["plain_ms"],
                      "bound_ms": last["bound_ms"],

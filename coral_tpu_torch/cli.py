@@ -2,9 +2,11 @@
 
 The five modes of ``coral_tpu`` (the reference's ``seed``, ``reconstruct``,
 ``hsr``, ``plot`` and ``cycle2bed``), with its flags, defaults and help.
-``reconstruct`` takes the port's engines and a ``--device``, and has no
-``--shard_devices``.  ``hsr`` and ``plot`` are host code that needs
-matplotlib; the other modes do not load it.
+``reconstruct`` takes the port's engines and a ``--device``; its
+``--shard_devices N`` shards pair scoring and the CN balance over a mesh of
+the first N CUDA devices (or, with ``--device cpu``, of N CPU shards), and
+raises when fewer cards are present.  ``hsr`` and ``plot`` are host code
+that needs matplotlib; the other modes do not load it.
 """
 from __future__ import annotations
 
@@ -54,10 +56,22 @@ def reconstruct_mode(args) -> None:
         engine=dataclasses.replace(
             cfg.engine, engine=args.engine, cn_engine=args.cn_engine),
     )
+    mesh = None
+    if args.shard_devices:
+        from .device import resolve_device
+        from .parallel.mesh import make_mesh
+
+        n = args.shard_devices
+        if resolve_device(args.device).type == "cpu":
+            mesh = make_mesh(n, cfg.parallel.dp_axis, devices=["cpu"] * n)
+        else:
+            mesh = make_mesh(n, cfg.parallel.dp_axis)
+        logging.getLogger(__name__).info(
+            "pair scoring sharded over %d device(s): %s", n, mesh)
     rec = reconstruct_graphs(
         args.lr_bam, args.cnv_seed, args.cn_seg, args.output_prefix,
         cfg=cfg, output_bp=args.output_bp, scan_cache=args.scan_cache,
-        device=args.device)
+        mesh=mesh, device=args.device)
     if not (args.output_bp or args.skip_cycle_decomp):
         reconstruct_cycles(
             rec, args.output_prefix,
@@ -168,6 +182,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device of the torch, cuda and batch engines: cuda, "
                         "cuda:N or cpu.  A CUDA device that is not there is "
                         "an error.")
+    p.add_argument("--shard_devices", type=int, default=0,
+                   help="Shard pair scoring and the CN balance over a mesh "
+                        "of this many devices: the first N CUDA devices, or "
+                        "N shards of --device cpu (0 = off).  Fewer cards "
+                        "than N is an error.")
 
     p = sub.add_parser(
         "hsr", help="Detect possible integration points of ecDNA HSR amplifications.")

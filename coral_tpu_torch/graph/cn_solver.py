@@ -15,7 +15,8 @@ the damped-Newton KKT iteration of the JAX package.  Engines:
   exists because the TPU has no f64 LU; CUDA does, so it is not ported;
 * ``batch``: every amplicon's system padded to one shape and solved
   together in float64 on an explicit device (:func:`compute_cn_batch`),
-  the program the JAX module's vmapped ``_solve_kkt_newton`` runs.
+  the program the JAX module's vmapped ``_solve_kkt_newton`` runs, or in
+  contiguous blocks over the shards of a device mesh.
 
 ``auto`` resolves to ``batch`` from ``batch_threshold`` amplicons up and
 to ``numpy`` below (:func:`resolve_cn_engine`): amplicon systems are tens
@@ -328,9 +329,15 @@ def _newton_batch(wlrseg, wcn, wlncn, A, max_iters: int, tol: float = 1e-9):
     return x[:, 0]
 
 
-def solve_cn_balance_batch(systems, max_iters: int = 1000, *, device):
+def solve_cn_balance_batch(systems, max_iters: int = 1000, mesh=None,
+                           axis: str = "dp", *, device=None):
     """Solve many balance programs together on ``device`` (the JAX
-    module's ``solve_cn_balance_batch``, without its ``mesh``).
+    module's ``solve_cn_balance_batch``), or with ``mesh`` over its
+    ``axis``: shard ``k`` solves the ``k``-th contiguous block of the
+    systems on its device (blocks split as the JAX module splits a batch,
+    the pad dropped, so a block may be empty).  A system gets the answer
+    it gets alone either way, so no block is padded with copies of
+    another's systems.  The blocks run one after another.
 
     ``systems``: a list of ``(wlrseg, wcn, wlncn, A)`` of ragged sizes.
     They are padded to one ``(n_max, m_max)``: padded variables get
@@ -345,6 +352,17 @@ def solve_cn_balance_batch(systems, max_iters: int = 1000, *, device):
     N = 600, so an 80 GB card holds a batch up to B * N^2 of about 4e9.
 
     Returns a list of x arrays (numpy float64) trimmed to each system."""
+    if mesh is not None:
+        from ..parallel.mesh import shard_bounds
+
+        xs = []
+        for k, (lo, hi) in enumerate(shard_bounds(len(systems),
+                                                  mesh.shape[axis])):
+            xs += solve_cn_balance_batch(systems[lo:hi], max_iters,
+                                         device=mesh.shard(**{axis: k})[0])
+        return xs
+    if device is None:
+        raise ValueError("solve_cn_balance_batch needs device= or mesh=")
     if not systems:
         return []
     dev = resolve_device(device)
@@ -368,12 +386,13 @@ def solve_cn_balance_batch(systems, max_iters: int = 1000, *, device):
     return [xs[b, :len(s[1])] for b, s in enumerate(systems)]
 
 
-def compute_cn_batch(graphs, normal_cov: float, max_iters: int = 1000, *,
-                     device) -> None:
+def compute_cn_batch(graphs, normal_cov: float, max_iters: int = 1000,
+                     mesh=None, axis: str = "dp", *, device=None) -> None:
     """:func:`compute_cn` over many amplicon graphs in one batched solve on
-    ``device`` (the JAX module's ``compute_cn_batch``, without its
-    ``mesh``).  A graph with no balance constraint takes the raw-coverage
-    CN, as there."""
+    ``device``, or sharded over ``axis`` of ``mesh``
+    (:func:`solve_cn_balance_batch`; the JAX module's
+    ``compute_cn_batch``).  A graph with no balance constraint takes the
+    raw-coverage CN, as there."""
     systems = []
     solvable = []
     for g in graphs:
@@ -386,6 +405,6 @@ def compute_cn_batch(graphs, normal_cov: float, max_iters: int = 1000, *,
                         np.asarray(wcn, np.float64),
                         np.asarray(wlncn, np.float64), A))
         solvable.append(g)
-    xs = solve_cn_balance_batch(systems, max_iters, device=device)
+    xs = solve_cn_balance_batch(systems, max_iters, mesh, axis, device=device)
     for g, x in zip(solvable, xs):
         _write_cn(g, x)

@@ -18,10 +18,12 @@ TPU; a GPU has them natively, so none of that is here.
 reads instead (the counterpart of ``bin_coverage_pallas``), with the
 scatter kernel K8 (:func:`.kernels.bin_overlap`) or its plain version.
 
-The sharded histogram of the JAX module (``bin_coverage_sharded``, reads
-and bins split over a device mesh and merged with an integer sum) belongs
-to the multi-device layer, which is not ported yet; there is no function
-of that name here until it is.
+The sharded histogram :func:`bin_coverage_sharded` splits the reads over
+one axis of a device mesh (:mod:`coral_tpu_torch.parallel.mesh`), and the
+bins, optionally, over a second: each shard runs K8 or its plain version
+on its device, and the read shards merge by an int64 sum in shard order,
+which is exact, where the JAX module sums an int32 residue and a float32
+estimate.
 """
 from __future__ import annotations
 
@@ -101,3 +103,50 @@ def bin_coverage(starts, ends, origin: int, bin_size: int, n_bins: int, *,
             for a in _int32_range(starts, ends))
     fn = bin_overlap if engine == "cuda" else bin_overlap_torch
     return fn(s, e, int(origin), int(bin_size), int(n_bins)).cpu().numpy()
+
+
+def bin_coverage_sharded(starts, ends, origin: int, bin_size: int,
+                         n_bins: int, mesh, axis: str = "dp",
+                         genome_axis=None, *, engine: str = "torch"
+                         ) -> np.ndarray:
+    """:func:`bin_coverage` with the reads split over ``axis`` of ``mesh``
+    and, with ``genome_axis`` set (a 2-D mesh), the bins split over that
+    axis: int64 numpy (n_bins,), equal to ``bin_coverage`` for any mesh.
+
+    The reads split as the JAX module splits them (padded to a multiple of
+    the shard count, equal blocks, the pad dropped).  Shard ``(i, j)``
+    counts read block ``i`` into bin block ``j`` on its device with
+    ``engine`` (``cuda``: K8, every device of the mesh a CUDA device;
+    ``torch``: its plain version); the read blocks add up in int64 in
+    shard order and the bin blocks concatenate.  Raises, as the JAX module
+    does, on coordinates outside int32 and when ``n_bins`` does not divide
+    by the genome axis."""
+    from ..parallel.mesh import shard_bounds
+
+    starts = np.asarray(starts)
+    ends = np.asarray(ends)
+    i32 = np.iinfo(np.int32)
+    if starts.size and (int(ends.max()) > i32.max
+                        or int(starts.min()) < i32.min):
+        raise ValueError(
+            "read positions exceed int32; shard per chromosome (or "
+            "rebase origins) before bin_coverage_sharded")
+    n_gen = 1 if genome_axis is None else mesh.shape[genome_axis]
+    if n_bins % n_gen:
+        raise ValueError(
+            f"n_bins={n_bins} not divisible by mesh axis "
+            f"{genome_axis}={n_gen}")
+    per = n_bins // n_gen
+    blocks = shard_bounds(len(starts), mesh.shape[axis])
+    out = []
+    for j in range(n_gen):
+        total = np.zeros(per, np.int64)
+        for i, (lo, hi) in enumerate(blocks):
+            coords = {axis: i} if genome_axis is None \
+                else {axis: i, genome_axis: j}
+            dev, _ = mesh.shard(**coords)
+            total += bin_coverage(starts[lo:hi], ends[lo:hi],
+                                  origin + j * per * bin_size, bin_size, per,
+                                  engine=engine, device=dev)
+        out.append(total)
+    return np.concatenate(out)

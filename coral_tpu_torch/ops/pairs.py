@@ -175,15 +175,19 @@ def find_breakpoints_device(
     as_table: bool = False,
     *,
     device,
+    mesh=None,
+    mesh_axis: str = "dp",
 ) -> List[list]:
     """Whole-table breakpoint extraction with the pair predicate evaluated
-    by :func:`score_pairs_l` (``coral_tpu.ops.pairs.find_breakpoints_device``
-    without a mesh).
+    by :func:`score_pairs_l` on ``device`` or, with ``mesh`` set, by
+    :func:`coral_tpu_torch.parallel.sharded.score_pairs_sharded` over the
+    mesh's ``mesh_axis`` (``coral_tpu.ops.pairs.find_breakpoints_device``).
 
     Produces exactly the same rows in exactly the same order as running
-    ``chimera_to_bps_l`` per read; the low-mapq rescue pass runs on the
-    host for the few affected reads.  ``as_table=True`` returns the same
-    observations as a flat-column ``coral_tpu.ops.breakpoints.BpTable``.
+    ``chimera_to_bps_l`` per read, for any engine and shard count; the
+    low-mapq rescue pass runs on the host for the few affected reads.
+    ``as_table=True`` returns the same observations as a flat-column
+    ``coral_tpu.ops.breakpoints.BpTable``.
     """
     from .breakpoints import interval_to_bp, \
         interval_overlap_l, rescue_pass
@@ -192,13 +196,26 @@ def find_breakpoints_device(
     table = build_chimera_table(chimeras)
     n_pairs = max(table.n_alignments - len(table.read_names), 0)
     nm_resolved = np.inf if max_nm is None else max_nm
-    engine, reason = resolve_engine(engine, n_pairs, dev)
+    if mesh is None:
+        engine, reason = resolve_engine(engine, n_pairs, dev)
+    else:
+        from ..parallel.sharded import resolve_mesh_engine
+
+        engine, reason = resolve_mesh_engine(engine, mesh)
+        reason = f"mesh axis {mesh_axis} of {mesh.shape[mesh_axis]}; {reason}"
     logger.info("pair scoring route: engine=%s (%d pairs; %s)",
                 engine, n_pairs, reason)
     t0 = time.perf_counter()
-    pi, pj, hits = score_pairs_l(
-        table, intervals, min_bp_match_cutoff, min_mapq, gap_,
-        nm_resolved, engine=engine, device=dev)
+    if mesh is None:
+        pi, pj, hits = score_pairs_l(
+            table, intervals, min_bp_match_cutoff, min_mapq, gap_,
+            nm_resolved, engine=engine, device=dev)
+    else:
+        from ..parallel.sharded import score_pairs_sharded
+
+        pi, pj, hits = score_pairs_sharded(
+            table, intervals, min_bp_match_cutoff, min_mapq, gap_, mesh,
+            mesh_axis, nm_resolved, engine=engine)
     dt = time.perf_counter() - t0
     logger.info("pair scoring route: engine=%s scored %d pairs in %.3fs",
                 engine, n_pairs, dt)
@@ -653,6 +670,20 @@ def score_pairs_l(
     pi, pj = adjacent_pair_indices(table.read_off)
     if pi.size == 0:
         return pi, pj, np.zeros(0, bool)
+    score = make_pair_scorer(table, intervals, min_bp_match_cutoff, min_mapq,
+                             gap_, max_nm, engine, device=device, batch=batch)
+    return pi, pj, score(pi)
+
+
+def make_pair_scorer(table: ChimeraTable, intervals: List[list],
+                     min_bp_match_cutoff: int, min_mapq: float, gap_: float,
+                     max_nm: float = np.inf, engine: str = "numpy", *,
+                     device, batch: int = 1 << 18):
+    """The predicate of :func:`score_pairs_l` as a function of the pair
+    rows: ``score(pi)`` -> the hit mask of the pairs ``(pi, pi + 1)``,
+    bool numpy.  What a call would redo for every block of pairs is done
+    here once: the interval table on ``device`` and, on the 6-column
+    route of the ``cuda`` engine, its interval index."""
     dev = resolve_device(device)
     int_chrom = np.asarray([CHR_IDX.get(iv[0], -2) for iv in intervals],
                            np.int32)
@@ -666,9 +697,8 @@ def score_pairs_l(
                        "(max_nm=%s); using the torch engine", max_nm)
         engine = "torch"
     if engine == "cuda":
-        return pi, pj, _score_pairs_cuda(
-            table, pi, int_chrom, int_start, int_end, min_bp_match_cutoff,
-            min_mapq, gap_, dev)
+        return _cuda_scorer(table, int_chrom, int_start, int_end,
+                            min_bp_match_cutoff, min_mapq, gap_, dev)
     if engine not in ("numpy", "torch"):
         raise ValueError(f"unknown engine {engine!r} (numpy, torch, cuda)")
     nm_col = table.nm
@@ -695,30 +725,42 @@ def score_pairs_l(
             return predicate(*cols14, int_chrom, int_start, int_end,
                              min_bp_match_cutoff, min_mapq, float(gap_),
                              float(max_nm))[0]
-    hits = np.zeros(pi.size, bool)
-    for lo in range(0, pi.size, batch):
-        sl = slice(lo, min(lo + batch, pi.size))
-        i, j = pi[sl], pj[sl]
-        hits[sl] = fn(
-            table.q_end[i], table.q_start[j],
-            table.chrom[i], table.r1[i], table.r2[i],
-            table.strand[i].astype(np.int32), table.mapq[i], nm_col[i],
-            table.chrom[j], table.r1[j], table.r2[j],
-            table.strand[j].astype(np.int32), table.mapq[j], nm_col[j])
-    return pi, pj, hits
+
+    def score(pi: np.ndarray) -> np.ndarray:
+        hits = np.zeros(pi.size, bool)
+        for lo in range(0, pi.size, batch):
+            sl = slice(lo, min(lo + batch, pi.size))
+            i = pi[sl]
+            j = i + 1
+            hits[sl] = fn(
+                table.q_end[i], table.q_start[j],
+                table.chrom[i], table.r1[i], table.r2[i],
+                table.strand[i].astype(np.int32), table.mapq[i], nm_col[i],
+                table.chrom[j], table.r1[j], table.r2[j],
+                table.strand[j].astype(np.int32), table.mapq[j], nm_col[j])
+        return hits
+    return score
 
 
-def _score_pairs_cuda(table, pi, int_chrom, int_start, int_end,
-                      min_bp_match_cutoff, min_mapq, gap_, dev):
+def _cuda_scorer(table, int_chrom, int_start, int_end, min_bp_match_cutoff,
+                 min_mapq, gap_, dev):
     """The hit mask from K1 (v3 columns) or, above
-    ``MAX_PACKED2_INTERVALS`` intervals, K3 (6 columns)."""
+    ``MAX_PACKED2_INTERVALS`` intervals, K3 (6 columns, the interval
+    table's index built here, once)."""
+    _require_cuda(dev)
+    args = (int_chrom, int_start, int_end, min_bp_match_cutoff,
+            int(math.ceil(min_mapq)), float(gap_), dev)
+    if len(int_chrom) <= MAX_PACKED2_INTERVALS:
+        return lambda pi: _hitmask_v3(table, pi, *args)
+    from .interval_index import build_interval_index
+
+    index = build_interval_index(int_chrom, int_start, int_end, dev)
+    return lambda pi: _hitmask_6col(table, pi, *args, index=index)
+
+
+def _require_cuda(dev: torch.device) -> None:
     if dev.type != "cuda":
         raise ValueError(f"engine='cuda' needs a CUDA device, got {dev}")
-    route = _hitmask_v3 if len(int_chrom) <= MAX_PACKED2_INTERVALS \
-        else _hitmask_6col
-    return route(table, pi, int_chrom, int_start, int_end,
-                 min_bp_match_cutoff, int(math.ceil(min_mapq)), float(gap_),
-                 dev)
 
 
 def _hitmask_v3(table, pi, int_chrom, int_start, int_end, cutoff, min_mapq,
@@ -743,12 +785,13 @@ def _hitmask_v3(table, pi, int_chrom, int_start, int_end, cutoff, min_mapq,
 
 
 def _hitmask_6col(table, pi, int_chrom, int_start, int_end, cutoff, min_mapq,
-                  gap_, dev):
+                  gap_, dev, index=None):
     """6 columns from the native one-pass packer (numpy twin when the
     library is unavailable) through :func:`.kernels.pair6_hitmask`, which
-    finds each side's interval itself, in the table's interval index: the
-    gate index of a long list no longer fits the v3 meta word.  The bounds
-    are int32 there, as in the JAX package."""
+    finds each side's interval itself, in the table's interval index
+    (``index``, or built in the call): the gate index of a long list no
+    longer fits the v3 meta word.  The bounds are int32 there, as in the
+    JAX package."""
     from .kernels import pair6_hitmask
     from .scoring import as_tensor, pack_pair_cols
 
@@ -768,5 +811,5 @@ def _hitmask_6col(table, pi, int_chrom, int_start, int_end, cutoff, min_mapq,
     ints = [as_tensor(a, dev, torch.int32)
             for a in (int_chrom, int_start, int_end)]
     cols = [as_tensor(c, dev, torch.int32) for c in packed]
-    hit, _ = pair6_hitmask(*ints, *cols, cutoff, min_mapq, gap_)
+    hit, _ = pair6_hitmask(*ints, *cols, cutoff, min_mapq, gap_, index=index)
     return hit.cpu().numpy()

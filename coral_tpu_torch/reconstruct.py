@@ -18,8 +18,10 @@ Known reference quirks that are live behavior and therefore preserved:
 
 This is the port of ``coral_tpu/reconstruct.py``: the same orchestration,
 line for line, on the port's own copies of the host stages, with pair
-scoring and CN balance going to the port's engines.  There is no mesh;
-the run's ``device`` is an argument.
+scoring and CN balance going to the port's engines.  The run's ``device``
+is an argument; a device mesh (:mod:`coral_tpu_torch.parallel.mesh`), when
+given, shards pair scoring and the batch CN engine over its ``dp`` axis,
+with results identical to the single-device run.
 """
 from __future__ import annotations
 
@@ -873,14 +875,17 @@ class Reconstruction:
 
     # -- final breakpoint passes (ref :676-802) ----------------------------
 
-    def find_breakpoints(self, use_device: Optional[bool] = None) -> None:
+    def find_breakpoints(self, use_device: Optional[bool] = None,
+                         mesh=None) -> None:
         """Whole-table breakpoint pass; pair scoring runs on the run's
-        ``device`` when the engine routes there."""
+        ``device`` when the engine routes there, or data-parallel over the
+        ``dp`` axis of ``mesh`` (results identical to the single-device
+        path for any shard count)."""
         cfg_b = self.cfg.bp
         max_nm = (self.nm_stats[0] + 3 * self.nm_stats[1]
                   if cfg_b.nm_filter else None)
         if use_device is None:
-            use_device = len(self.chimeras) >= 512 \
+            use_device = len(self.chimeras) >= 512 or mesh is not None \
                 or self.cfg.engine.engine not in ("auto", "numpy")
         if use_device:
             from .ops.pairs import find_breakpoints_device
@@ -889,7 +894,8 @@ class Reconstruction:
                 cfg_b.min_bp_match_cutoff, cfg_b.min_mapq, 100,
                 cfg_b.gap_mapq, max_nm,
                 engine=self.cfg.engine.engine,
-                as_table=True, device=self.device)
+                as_table=True, device=self.device,
+                mesh=mesh, mesh_axis=self.cfg.parallel.dp_axis)
         else:
             new_bp_list_ = []
             for rn, chim in self.chimeras.items():
@@ -1406,13 +1412,14 @@ class Reconstruction:
 
     # -- full pipeline -----------------------------------------------------
 
-    def compute_cn(self, engine: Optional[str] = None) -> None:
+    def compute_cn(self, engine: Optional[str] = None, mesh=None) -> None:
         """CN balance for every amplicon graph; default is the config's
         ``cn_engine``, resolved by
         :func:`coral_tpu_torch.graph.cn_solver.resolve_cn_engine` (``auto``
         is ``batch`` from ``cfg.engine.cn_batch_threshold`` amplicons up).
         The ``torch`` engine solves each graph on the run's ``device``, and
-        ``batch`` solves them all there together."""
+        ``batch`` solves them all there together.  A ``mesh`` takes the
+        ``batch`` engine, sharded over its ``dp`` axis."""
         from .graph.cn_solver import compute_cn_batch, resolve_cn_engine
 
         if engine is None:
@@ -1420,11 +1427,14 @@ class Reconstruction:
         engine = resolve_cn_engine(
             engine, len(self.graphs),
             batch_threshold=self.cfg.engine.cn_batch_threshold)
+        if mesh is not None:
+            engine = "batch"
         logger.info("CN balance route: engine=%s (%d amplicons)",
                     engine, len(self.graphs))
         if engine == "batch":
             compute_cn_batch(self.graphs, self.normal_cov,
-                             self.cfg.cn.max_iters, device=self.device)
+                             self.cfg.cn.max_iters, mesh,
+                             self.cfg.parallel.dp_axis, device=self.device)
             return
         for g in self.graphs:
             compute_cn(g, self.normal_cov, self.cfg.cn.max_iters,
@@ -1454,13 +1464,15 @@ def reconstruct_graphs(
     cfg: Config = DEFAULT_CONFIG,
     output_bp: bool = False,
     scan_cache: bool = False,
+    mesh=None,
     *,
     device,
 ) -> Reconstruction:
     """End-to-end graph reconstruction (reference ``reconstruct_graph``,
     ``infer_breakpoint_graph.py:1333-1395``).  ``scan_cache`` enables the
     BAM scan-resume checkpoint (``BamFile(scan_cache=True)``).  ``device``
-    is where the device engines (``cfg.engine``) run."""
+    is where the device engines (``cfg.engine``) run; ``mesh`` shards pair
+    scoring and the CN balance (the batch engine) over its ``dp`` axis."""
     from .graph.breakpoint_graph import write_breakpoints_file, write_graph_file
 
     bam = BamFile(lr_bam, scan_cache=scan_cache)
@@ -1473,7 +1485,7 @@ def reconstruct_graphs(
     rec.hash_to_segments()
     rec.find_amplicon_intervals()
     rec.find_smalldel_breakpoints()
-    rec.find_breakpoints()
+    rec.find_breakpoints(mesh=mesh)
     rec.build_graph()
     if output_bp:
         for gi, g in enumerate(rec.graphs):
@@ -1489,7 +1501,7 @@ def reconstruct_graphs(
                 g, f"{output_prefix}_amplicon{gi + 1}_breakpoints.txt", stats)
     else:
         rec.assign_cov()
-        rec.compute_cn()
+        rec.compute_cn(mesh=mesh)
         for gi, g in enumerate(rec.graphs):
             write_graph_file(g, f"{output_prefix}_amplicon{gi + 1}_graph.txt")
     return rec

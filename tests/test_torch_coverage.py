@@ -212,8 +212,13 @@ def test_coverage_checks():
             bin_coverage(s, e, 0, 10, 4, engine="cuda", device="cuda")
         with pytest.raises(RuntimeError):
             CoverageIndex(s, e, device="cuda")
-    from coral_tpu_torch.ops import coverage
-    assert not hasattr(coverage, "bin_coverage_sharded")
+    from coral_tpu_torch.ops.coverage import bin_coverage_sharded
+    from coral_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="int32"):
+        bin_coverage_sharded(s, e + 2**31, 0, 10, 4, mesh)
+    with pytest.raises(ValueError, match="CUDA device"):
+        bin_coverage_sharded(s, e, 0, 10, 4, mesh, engine="cuda")
 
 
 @pytest.fixture

@@ -59,6 +59,9 @@ COPIES = {
     "hsr.py": ((), ()),
     "plot/__init__.py": ((), ()),
     "plot/plot_amplicons.py": ((), ()),
+    "parallel/__init__.py": ((), ()),
+    # the pipeline after the merge runs its device engines on ``device``
+    "parallel/multihost.py": (("multihost_reconstruct_graphs",), ()),
 }
 
 
@@ -118,7 +121,9 @@ def test_every_copy_is_guarded():
     either in the list above or one of the modules the port rewrote."""
     rewritten = {"__init__.py", "__main__.py", "cli.py", "reconstruct.py",
                  "graph/__init__.py", "graph/cn_solver.py", "ops/__init__.py",
-                 "ops/pairs.py", "ops/scoring.py", "ops/coverage.py"}
+                 "ops/pairs.py", "ops/scoring.py", "ops/coverage.py",
+                 "parallel/mesh.py", "parallel/sharded.py",
+                 "parallel/distributed.py"}
     found = set()
     top = os.path.join(ROOT, "coral_tpu_torch")
     for d, _, names in os.walk(top):

@@ -68,9 +68,12 @@ names = [m.name for m in pkgutil.walk_packages(coral_tpu_torch.__path__,
          if not m.name.endswith("__main__")]
 for n in names:
     importlib.import_module(n)
+assert {"coral_tpu_torch.parallel.mesh", "coral_tpu_torch.parallel.sharded",
+        "coral_tpu_torch.parallel.multihost",
+        "coral_tpu_torch.parallel.distributed"} <= set(names), names
 print(len(names))
 ''', tmp_path)
-    assert int(out.split()[-1]) >= 36
+    assert int(out.split()[-1]) >= 40
 
 
 def test_pair_scoring_runs_without_jax(tmp_path):
@@ -195,4 +198,34 @@ for flags in ([], ["--rotate_to_min"]):
                  "--output_fn", bed, *flags]) == 0
     with open(bed) as fh:
         assert [ln for ln in fh if not ln.startswith("#")]
+''' % str(tmp_path), tmp_path)
+
+
+def test_distributed_worker_mains_run_without_jax(tmp_path):
+    """``python -m coral_tpu_torch.parallel.distributed`` in a 1-process
+    gloo group, both mains (the histogram, then the pipeline with cycles),
+    with ``jax`` and ``coral_tpu`` blocked."""
+    _run(r'''
+import os
+import runpy
+
+import numpy as np
+from coral_tpu_torch.parallel.multihost import split_bam
+from coral_tpu_torch.sim import simulate_ecdna
+
+out = %r
+bam, cns, seeds = simulate_ecdna(out, jitter=0)
+shard = split_bam(bam, [os.path.join(out, "s0.bam")])[0]
+for k, args in enumerate((
+        [shard, "chr7", "54000000", "100000", "64",
+         os.path.join(out, "h.npy")],
+        ["pipeline", seeds, cns, os.path.join(out, "p"), shard])):
+    head = ["0", "1", "file://" + os.path.join(out, "rdzv%%d" %% k), "gloo",
+            "cpu"]
+    sys.argv = ["distributed"] + (args[:1] + head + args[1:]
+                                  if args[0] == "pipeline" else head + args)
+    runpy.run_module("coral_tpu_torch.parallel.distributed",
+                     run_name="__main__")
+assert np.load(os.path.join(out, "h.npy")).sum() > 0
+assert os.path.exists(os.path.join(out, "p.p0_amplicon1_cycles.txt"))
 ''' % str(tmp_path), tmp_path)
