@@ -30,15 +30,17 @@ exits non-zero:
    device time by the profiler, after an L2 flush and warm;
 4. the main paths at WGS scale, on the junction-heavy 10-chromosome
    sample (5,179,920 records, 1.5 M pairs):
-   a. reconstruct with the ``cuda`` engine (K1) and the fused batch
-      scorer (K2) against the ``numpy`` engine: graph files
-      byte-identical, support and coverage exact;
+   a. reconstruct through ``bench_wgs.run_staged`` with the ``cuda``
+      engine (K1) and the fused batch scorer (K2) against the ``numpy``
+      engine: graph files byte-identical, support and coverage exact;
    b. the 6-column route: the sample's amplicon intervals plus 8,190
       decoy intervals that overlap no read, so the ``cuda`` engine goes
       through K3 and the ``cuda6`` batch scorer through K4, both on the
-      list's interval index; hit mask and BpTable against the ``numpy``
-      engine, against K1 on the real intervals alone, and again with the
-      decoys placed first; the stage's time three times each way;
+      list's interval index; hit mask and BpTable over every read
+      against the ``torch`` engine on the card, against K1 on the real
+      intervals alone, again with the decoys placed first, and against
+      the ``numpy`` engine over every tenth read's chimeras; the stage's
+      time three times each way;
    c. the v2 route: the sample's pairs through the native ``pack_pairs2``,
       the ``cuda2`` batch scorer (K6) against the ``cuda`` and ``torch``
       engines and K5's hit mask against K1's of 4a;
@@ -108,7 +110,19 @@ exits non-zero:
       numpy arm's (``auto_never_loses``), the calibration printed;
    c. ``compute_cn_hybrid`` on the sample's 10 graphs with seeded
       short-read counts, every ``"%f"`` digit of the program solved by the
-      numpy engine.
+      numpy engine;
+9. the port's tools (``coral_tpu_torch/tools``), each through its own
+   entry, its JSON printed and every check required: ``bench_kernels``
+   at its three shapes (K3, K8, K9; every row agrees), ``bench_v3_ab``
+   at 2^21 pairs (K6, K2, K1; support identical, hits K1's and numpy's),
+   ``bench_e2e`` at its default size with ``--engine cuda`` against
+   ``--engine numpy --cn_engine numpy`` (graph and cycles files
+   identical) and ``stress_scan`` at 4 chromosomes of 1.5 kb reads
+   (every record built scanned).  Phase 4a runs
+   ``bench_wgs.build_junction_heavy`` and ``bench_wgs.run_staged``, and
+   phase 7's fan-out runs through ``bench_multihost.scaling``.  The
+   tools' launches, counted from zero a tool, are added to the
+   kernels'.
 
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Nothing here
@@ -136,13 +150,21 @@ import filecmp
 import json
 import os
 import re
-import struct
 import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
+
+# the port's tools, and the inputs and timer they share (the tests import
+# the inputs from here too)
+from coral_tpu_torch.tools import bench_e2e, bench_kernels, bench_multihost, \
+    bench_v3_ab, bench_wgs, stress_scan
+from coral_tpu_torch.tools.bench_common import cuda_ms, engine_config, \
+    synth_alignment_table, synth_scoring_batch
+from coral_tpu_torch.tools.bench_wgs import CHR_LEN as WGS_CHR_LEN, \
+    CHROMS as WGS_CHROMS, build_junction_heavy
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_PAIRS = 1 << 21
@@ -221,29 +243,6 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call, in ms, with the 50 MB L2 cache
-    flushed before each call (the main path finds its columns cold: they
-    have just been copied in)."""
-    import torch
-
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        flush.zero_()
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def device_us(fn, kernel: str, flush: bool, reps: int = 20):
@@ -374,58 +373,6 @@ def bound_index(n_int: int):
 
 
 # -- inputs ---------------------------------------------------------------
-
-def synth_scoring_batch(n_pairs: int, n_intervals: int = 16, seed: int = 0):
-    """The scoring benchmark's random batch (``bench.synth_scoring_batch``):
-    14 unpacked pair columns over ``n_intervals`` 2 Mb intervals; sparse
-    (about one pair in 10^4 hits)."""
-    rng = np.random.default_rng(seed)
-    starts = rng.integers(0, 200_000_000, n_pairs).astype(np.int32)
-    ends = (starts + rng.integers(1_000, 60_000, n_pairs)).astype(np.int32)
-    cols = dict(
-        qi_end=rng.integers(0, 30_000, n_pairs).astype(np.int32),
-        qj_start=rng.integers(0, 30_000, n_pairs).astype(np.int32),
-        chrom_i=rng.integers(0, 24, n_pairs).astype(np.int32),
-        r1_i=rng.integers(0, 200_000_000, n_pairs).astype(np.int32),
-        r2_i=rng.integers(0, 200_000_000, n_pairs).astype(np.int32),
-        strand_i=rng.choice([-1, 1], n_pairs).astype(np.int32),
-        mapq_i=rng.integers(0, 61, n_pairs).astype(np.int32),
-        nm_i=(rng.random(n_pairs) * 0.2).astype(np.float32),
-        chrom_j=rng.integers(0, 24, n_pairs).astype(np.int32),
-        r1_j=rng.integers(0, 200_000_000, n_pairs).astype(np.int32),
-        r2_j=rng.integers(0, 200_000_000, n_pairs).astype(np.int32),
-        strand_j=rng.choice([-1, 1], n_pairs).astype(np.int32),
-        mapq_j=rng.integers(0, 61, n_pairs).astype(np.int32),
-        nm_j=(rng.random(n_pairs) * 0.2).astype(np.float32),
-    )
-    int_chrom = (np.arange(n_intervals) % 24).astype(np.int32)
-    int_start = (np.arange(n_intervals) * 3_000_000).astype(np.int32)
-    int_end = (int_start + 2_000_000).astype(np.int32)
-    return starts, ends, cols, int_chrom, int_start, int_end
-
-
-def synth_alignment_table(cols: dict):
-    """The pair columns interleaved into a flat ALIGNMENT table (pair k =
-    alignments 2k, 2k+1), so that they pack through the product's packers
-    (``bench.synth_alignment_table``)."""
-    n = len(cols["qi_end"])
-
-    def interleave(a, b, dtype):
-        out = np.empty(2 * n, dtype)
-        out[0::2] = a
-        out[1::2] = b
-        return out
-
-    zero = np.zeros(n, np.int64)
-    return ((2 * np.arange(n)).astype(np.int64),
-            interleave(zero, cols["qj_start"], np.int64),
-            interleave(cols["qi_end"], zero, np.int64),
-            interleave(cols["r1_i"], cols["r1_j"], np.int64),
-            interleave(cols["r2_i"], cols["r2_j"], np.int64),
-            interleave(cols["chrom_i"], cols["chrom_j"], np.int32),
-            interleave(cols["strand_i"], cols["strand_j"], np.int8),
-            interleave(cols["mapq_i"], cols["mapq_j"], np.int32))
-
 
 def dense_case(n: int, n_int: int, seed: int):
     """v3 columns of which about half hit; includes the threshold edges
@@ -658,83 +605,6 @@ def synth_breakpoints(seed: int, group_sizes):
         bps += [[c1, int(a), o1, c2, int(b), o2, ("rd", g, k), 0, 0, 60, 60]
                 for k, (a, b) in enumerate(zip(p1, p2))]
     return [bps[k] for k in rng.permutation(len(bps))]
-
-
-WGS_CHROMS = [f"chr{i}" for i in range(1, 10)] + ["chrX"]
-WGS_CHR_LEN = 159_345_973
-
-
-def build_wgs_sample(out_dir, read_len, n_junction_reads, junction_flank,
-                     bg_cov, name):
-    """One simulated ecDNA amplicon replicated onto ten real chromosome
-    names (``tools/bench_wgs.build``): only 4-character names can replace
-    the template's "chr7" SA rnames in place.  Returns (bam, cns, seeds,
-    records)."""
-    from coral_tpu_torch.io.bgzf import BGZF_EOF, iter_blocks, write_bgzf
-    from coral_tpu_torch.sim import simulate_ecdna
-
-    bam, cns, seeds = simulate_ecdna(
-        out_dir, jitter=2, n_junction_reads=n_junction_reads,
-        bg_read_len=read_len, amp_read_len=read_len,
-        junction_flank=junction_flank, bg_cov=bg_cov)
-    with open(bam, "rb") as fh:
-        payload = b"".join(b for _, b in iter_blocks(fh.read()))
-    l_text = struct.unpack_from("<i", payload, 4)[0]
-    p = 8 + l_text
-    n_ref = struct.unpack_from("<i", payload, p)[0]
-    p += 4
-    for _ in range(n_ref):
-        p += 8 + struct.unpack_from("<i", payload, p)[0]
-    body_start = p
-    rel = []
-    while p < len(payload):
-        rel.append(p - body_start)
-        p += 4 + struct.unpack_from("<i", payload, p)[0]
-    body = bytearray(payload[body_start:])
-
-    text = ("@HD\tVN:1.6\tSO:coordinate\n" + "".join(
-        f"@SQ\tSN:{c}\tLN:{WGS_CHR_LEN}\n" for c in WGS_CHROMS)).encode()
-    header = b"BAM\x01" + struct.pack("<i", len(text)) + text \
-        + struct.pack("<i", len(WGS_CHROMS))
-    for c in WGS_CHROMS:
-        nb = c.encode() + b"\x00"
-        header += struct.pack("<i", len(nb)) + nb \
-            + struct.pack("<i", WGS_CHR_LEN)
-
-    big_path = os.path.join(out_dir, f"{name}.bam")
-    with open(big_path, "wb") as fp:
-        write_bgzf(fp, bytes(header), level=1)
-        for ci, c in enumerate(WGS_CHROMS):
-            n0, n1 = 48 + ci // 10, 48 + ci % 10
-            for r in rel:
-                struct.pack_into("<i", body, r + 4, ci)
-                body[r + 36] = n0
-                body[r + 37] = n1
-            write_bgzf(fp, bytes(body).replace(b"chr7,", f"{c},".encode()),
-                       level=1)
-        fp.write(BGZF_EOF)
-
-    with open(cns) as fh:
-        cns_rows = fh.read().splitlines()[1:]
-    cns_path = os.path.join(out_dir, f"{name}.cns")
-    with open(cns_path, "w") as fp:
-        fp.write("chromosome\tstart\tend\tgene\tlog2\tdepth\n")
-        for c in WGS_CHROMS:
-            for row in cns_rows:
-                fp.write(c + row[row.index("\t"):] + "\n")
-    seeds_path = os.path.join(out_dir, f"{name}_seeds.bed")
-    with open(seeds_path, "w") as fp:
-        for c in WGS_CHROMS:
-            fp.write(f"{c}\t55000000\t55399999\n")
-    return big_path, cns_path, seeds_path, len(rel) * len(WGS_CHROMS)
-
-
-def build_junction_heavy(out_dir):
-    """The junction-dominated 10-chromosome sample
-    (``tools/bench_wgs.build_junction_heavy``): 1.5 M chimeric reads of one
-    adjacent pair each over a modest background, 5,179,920 records."""
-    return build_wgs_sample(out_dir, read_len=1500, n_junction_reads=150_000,
-                            junction_flank=50, bg_cov=4, name="wgs_hvy")
 
 
 def decoy_intervals(n: int):
@@ -1277,52 +1147,6 @@ def phase_kernels() -> dict:
 
 # -- phase 4 --------------------------------------------------------------
 
-def _staged(bam_path, cns, seeds, prefix, cfg, device):
-    """reconstruct_graphs (graph files, no breakpoint-only output), stage
-    by stage with the time of each."""
-    import torch
-
-    from coral_tpu_torch.graph.breakpoint_graph import write_graph_file
-    from coral_tpu_torch.io.bam import BamFile
-    from coral_tpu_torch.reconstruct import Reconstruction
-
-    def sync():
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-
-    stages = {}
-    t_all = t0 = time.perf_counter()
-    rec = Reconstruction(BamFile(bam_path), seeds, cfg, device=device)
-    rec.read_cns(cns)
-    rec.collect()
-    stages["scan+collect"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rec.hash_to_segments()
-    rec.find_amplicon_intervals()
-    stages["interval_search"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rec.find_smalldel_breakpoints()
-    rec.find_breakpoints()
-    sync()
-    stages["breakpoints"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rec.build_graph()
-    rec.assign_cov()
-    t_graph = time.perf_counter() - t0
-    # the graphs as CN finds them, for phase 4f (not timed)
-    t_copy = time.perf_counter()
-    before_cn = copy.deepcopy(rec.graphs)
-    t_copy = time.perf_counter() - t_copy
-    t0 = time.perf_counter()
-    rec.compute_cn()
-    stages["cn"] = time.perf_counter() - t0
-    for gi, g in enumerate(rec.graphs):
-        write_graph_file(g, f"{prefix}_amplicon{gi + 1}_graph.txt")
-    stages["graph+cn+write"] = t_graph + time.perf_counter() - t0
-    stages["total"] = time.perf_counter() - t_all - t_copy
-    return rec, stages, before_cn
-
-
 def _interval_arrays(intervals, span=0):
     """Interval list -> (chrom codes, starts, ends); with ``span`` the
     bounds move onto one linear genome coordinate."""
@@ -1364,7 +1188,6 @@ def phase_main_path(work: str):
     shape, the scoring inputs phase 4b goes on with)."""
     import torch
 
-    from coral_tpu_torch.config import DEFAULT_CONFIG
     from coral_tpu_torch.ops import kernels
     from coral_tpu_torch.ops.pairs import adjacent_pair_indices, \
         build_chimera_table, last_route_seq, route_records_since
@@ -1376,16 +1199,22 @@ def phase_main_path(work: str):
     log(f"[4 wgs] junction-heavy sample: {n_rec} records built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def cfg(engine):
-        return DEFAULT_CONFIG.replace(engine=dataclasses.replace(
-            DEFAULT_CONFIG.engine, engine=engine))
+    cfg = engine_config
+    kept = {}
 
-    # the main path's run: counters from zero, nothing else launches
+    def keep(rec):
+        # the Reconstruction, and its graphs as CN finds them (phase 4f);
+        # run_staged leaves this out of its stages
+        kept["rec"], kept["before_cn"] = rec, copy.deepcopy(rec.graphs)
+
+    # the main path's run, through the tool: counters from zero, nothing
+    # else launches
     seq = last_route_seq()
     kernels.reset_launches()
-    rec_c, st_c, before_cn = _staged(bam, cns, seeds,
-                                     os.path.join(work, "cuda"),
-                                     cfg("cuda"), "cuda")
+    st_c, route_lines, files, n_amp, _ = bench_wgs.run_staged(
+        bam, cns, seeds, os.path.join(work, "cuda"), engine="cuda",
+        skip_cycles=True, device="cuda", on_graphs=keep)
+    rec_c, before_cn = kept["rec"], kept["before_cn"]
     table = build_chimera_table(rec_c.chimeras)
     pi, _ = adjacent_pair_indices(table.read_off)
     span = np.int64(1) << 32
@@ -1428,34 +1257,31 @@ def phase_main_path(work: str):
                                                       GAP)),
           "K7": cuda_ms(lambda: kernels.stream_control(*cols))}
 
-    rec_n, st_n, _ = _staged(bam, cns, seeds, os.path.join(work, "numpy"),
-                             cfg("numpy"), "cuda")
-    rec_n.bam.close()
+    st_n, _, files_n, _, _ = bench_wgs.run_staged(
+        bam, cns, seeds, os.path.join(work, "numpy"), engine="numpy",
+        skip_cycles=True, device="cuda")
     n_pairs = routes[0].n_pairs if routes else 0
     require(routes and routes[0].engine == "cuda",
             f"main path did not route to cuda: {routes}")
     require(launches["pair3"] > 0, f"K1 never launched: {launches}")
     require(launches["pair3_support"] > 0, f"K2 never launched: {launches}")
-    graphs = sorted(f for f in os.listdir(work)
-                    if f.startswith("cuda_") and f.endswith("_graph.txt"))
-    require(len(graphs) == len(rec_c.graphs) > 0, "no graph files")
-    for f in graphs:
-        require(filecmp.cmp(os.path.join(work, f),
-                            os.path.join(work, "numpy" + f[4:]),
-                            shallow=False), f"{f}: cuda != numpy")
+    require(n_amp == len(rec_c.graphs) == len(files) == len(files_n) > 0,
+            f"graph files: {sorted(files)}, {sorted(files_n)}")
+    for f, text in files.items():
+        require(text == files_n.get("numpy" + f[4:]), f"{f}: cuda != numpy")
     hit, iogm = pair_predicate_packed3_np(*packed, CUTOFF, GAP)
     require(np.array_equal(
         support, np.bincount(iogm[hit], minlength=len(ic))[:len(ic)]),
         "WGS support != numpy")
     require(np.array_equal(cov, _coverage_numpy(starts, ends, lin_s, lin_e)),
             "WGS coverage != numpy")
-    fmt = {k: round(v, 3) for k, v in st_c.items()}
     log(f"[4a wgs] records {n_rec} chimeric pairs {n_pairs} amplicons "
         f"{len(rec_c.graphs)} graph files identical cuda==numpy")
-    log(f"[4a wgs] stages s, engine cuda: {json.dumps(fmt)}; pair scoring "
-        f"{routes[0].seconds:.3f} s")
-    log(f"[4a wgs] stages s, engine numpy: "
-        f"{json.dumps({k: round(v, 3) for k, v in st_n.items()})}")
+    log(f"[4a wgs] bench_wgs.run_staged stages s, engine cuda: "
+        f"{json.dumps(st_c)}; pair scoring {routes[0].seconds:.3f} s; "
+        f"{route_lines}")
+    log(f"[4a wgs] bench_wgs.run_staged stages s, engine numpy: "
+        f"{json.dumps(st_n)}")
     log(f"[4a wgs] batch scorer (K2 + int64 coverage) over {len(packed[0])} "
         f"pairs, {len(starts)} reads, {len(ic)} intervals: {t_score:.3f} s, "
         f"support {support.tolist()} == numpy, coverage exact")
@@ -1518,6 +1344,9 @@ def _bp_tables_equal(a, b) -> bool:
         and a.tup == b.tup and a.names == b.names
 
 
+NUMPY_READ_STRIDE = 10    # 4b: the numpy witness scores a tenth of the reads
+
+
 def phase_six_column_path(rec, scoring, report):
     """4b: the 6-column path.  ``find_breakpoints_device(engine="cuda")``
     and ``make_batch_scorer(engine="cuda6")`` on the whole WGS sample over
@@ -1537,12 +1366,12 @@ def phase_six_column_path(rec, scoring, report):
     require(len(real) + len(decoys) > MAX_PACKED2_INTERVALS,
             "interval list not past the v3 limit")
 
-    def extract(intervals, engine):
+    def extract(intervals, engine, chimeras=rec.chimeras):
         masks = []
         t0 = time.perf_counter()
         with recorded_hit_masks(pairs_mod, masks):
             tb = pairs_mod.find_breakpoints_device(
-                rec.chimeras, intervals, cfg_b.min_bp_match_cutoff,
+                chimeras, intervals, cfg_b.min_bp_match_cutoff,
                 cfg_b.min_mapq, 100, cfg_b.gap_mapq, None, engine=engine,
                 as_table=True, device="cuda")
         torch.cuda.synchronize()
@@ -1578,10 +1407,21 @@ def phase_six_column_path(rec, scoring, report):
     # the breakpoints stage again, for its spread (after the counts)
     t_cs = [t_c] + [extract(last, "cuda")[2] for _ in range(2)]
 
-    # -- against the numpy engine on the same list
-    tb_n, hit_n, t_n = extract(last, "numpy")
-    require(np.array_equal(hit_c, hit_n), "long list: cuda hit mask != numpy")
-    require(_bp_tables_equal(tb_c, tb_n), "long list: cuda BpTable != numpy")
+    # -- against the torch engine (the plain predicate, on the card) over
+    #    every read: hit mask and BpTable
+    tb_t, hit_t, t_t = extract(last, "torch")
+    require(np.array_equal(hit_c, hit_t), "long list: cuda hit mask != torch")
+    require(_bp_tables_equal(tb_c, tb_t), "long list: cuda BpTable != torch")
+    # -- against the numpy engine, a host witness, over the chimeras of
+    #    every NUMPY_READ_STRIDE-th read: its scan of 8,200 intervals an
+    #    alignment takes 60-85 s over all of them
+    sub = {rn: rec.chimeras[rn]
+           for rn in rec.chimeras.names[::NUMPY_READ_STRIDE]}
+    tb_s, hit_s, _ = extract(last, "cuda", sub)
+    tb_n, hit_n, t_n = extract(last, "numpy", sub)
+    require(hit_n.any(), "long list: no hit in the numpy engine's reads")
+    require(np.array_equal(hit_s, hit_n), "long list: cuda hit mask != numpy")
+    require(_bp_tables_equal(tb_s, tb_n), "long list: cuda BpTable != numpy")
     # -- against the v3 route (K1) on the real intervals alone
     require(np.array_equal(hit_c, scoring["hit_v3"]),
             "long list: K3 hit mask != K1 on the real intervals")
@@ -1631,13 +1471,16 @@ def phase_six_column_path(rec, scoring, report):
             report[name][-1]["max_abs_err"], r["max_abs_err"])))
     log(f"[4b wgs6] {len(last)} intervals ({len(real)} real + "
         f"{len(decoys)} decoys), {len(pi)} pairs: hit mask and BpTable "
-        f"({len(tb_c)} rows) cuda==numpy, ==K1 on the real intervals, "
-        f"unchanged with the decoys first")
+        f"({len(tb_c)} rows) cuda==torch over every read, ==K1 on the real "
+        f"intervals, unchanged with the decoys first; cuda==numpy over every "
+        f"{NUMPY_READ_STRIDE}th read's chimeras ({len(sub)} reads, "
+        f"{len(hit_n)} pairs, {len(tb_n)} rows)")
     log(f"[4b wgs6] find_breakpoints_device s (the breakpoints stage of "
         f"the long list), three runs each: cuda "
         f"{' '.join(f'{t:.3f}' for t in t_cs)} (pair scoring of the first "
         f"{routes[0].seconds:.3f}) decoys-first cuda "
-        f"{' '.join(f'{t:.3f}' for t in t_fs)} numpy {t_n:.3f}")
+        f"{' '.join(f'{t:.3f}' for t in t_fs)}; torch over every read "
+        f"{t_t:.3f}; numpy over every {NUMPY_READ_STRIDE}th read {t_n:.3f}")
     log(f"[4b wgs6] batch scorer cuda6 (K4) {t_score6:.3f} s == cuda (K2) on "
         f"the real intervals == torch on the long list ({t_torch:.3f} s); "
         f"support {sup6[:len(real)].tolist()}, decoys 0, coverage exact")
@@ -1908,9 +1751,8 @@ def phase_cn_batch(rec, scoring, work: str) -> None:
         f"{sorted(sizes)}): graph files batch (cuda) == numpy == 4a's; "
         f"compute_cn s, three runs each: batch "
         f"{' '.join(f'{t:.4f}' for t in secs['batch'])} numpy "
-        f"{' '.join(f'{t:.4f}' for t in secs['numpy'])}; 4a's CN (numpy, "
-        f"auto) {st['cn']:.4f} s of graph+cn+write {st['graph+cn+write']:.3f}"
-        f" s ({st['cn'] / st['graph+cn+write']:.3f})")
+        f"{' '.join(f'{t:.4f}' for t in secs['numpy'])}; 4a's graph+cn "
+        f"stage (CN auto) {st['graph+cn']} s")
 
     systems = chain_cn_systems()
     torch.cuda.reset_peak_memory_stats()
@@ -2341,27 +2183,22 @@ def phase_parallel(rec, scoring, work: str):
         "of the single batch")
 
     # the BAM split into shards, one scanning process each: the whole
-    # pipeline once a shard count, its scan and merge timed
-    scan_s = {}
-    for k in SCAN_SHARDS:
-        t0 = time.perf_counter()
-        shards = multihost.split_bam(
-            bam, [os.path.join(work, f"wgs{k}_s{i}.bam") for i in range(k)])
-        t_split = time.perf_counter() - t0
-        ends = []
-        t0 = time.perf_counter()
-        with merge_ends(multihost, ends):
-            rec_h = multihost.multihost_reconstruct_graphs(
-                shards, seeds, cns, os.path.join(work, f"mh{k}"),
-                cfg=scoring["cfg"], device="cuda")
-        t_all = time.perf_counter() - t0
-        rec_h.bam.close()
-        require(len(ends) == 1, "merge_scan_products not called once")
-        _same_files(work, f"mh{k}", work, "cuda")
-        scan_s[k] = ends[0] - t0
-        log(f"[7 scan] {k} shards: split {t_split:.3f} s; "
-            f"multihost_reconstruct_graphs {t_all:.3f} s, graph files "
-            f"identical to 4a's")
+    # pipeline once a shard count through the scaling tool's loop, its
+    # scan and merge timed
+    scan_s, ends = {}, []
+    with merge_ends(multihost, ends):
+        for row in bench_multihost.scaling(bam, seeds, cns, work,
+                                           ns=SCAN_SHARDS, reps=1,
+                                           cfg=scoring["cfg"],
+                                           device="cuda"):
+            k = row["processes"]
+            row["rec"].bam.close()
+            require(len(ends) == 1, "merge_scan_products not called once")
+            scan_s[k] = ends.pop() - row["started"]
+            _same_files(work, os.path.basename(row["prefix"]), work, "cuda")
+            log(f"[7 scan] {k} shards: split {row['split_s']:.3f} s; "
+                f"multihost_reconstruct_graphs {row['wall_s']:.3f} s, graph "
+                "files identical to 4a's")
     st = scoring["stages"]
     log("[7 scan] fanned-out scan + merge, s: " + "; ".join(
         f"{k} shards {v:.3f}" for k, v in scan_s.items())
@@ -2823,6 +2660,99 @@ def phase_hybrid_cn(scoring) -> None:
         "numpy engine's solve of the same program")
 
 
+
+# -- phase 9 --------------------------------------------------------------
+
+E2E_JUNCTIONS = 5000      # bench_e2e's default sample
+STRESS_CHROMS = 4
+STRESS_READ_LEN = 1500
+
+
+def phase_tools(work: str) -> dict:
+    """9: the port's tools (``coral_tpu_torch/tools``) on the card, each
+    through its own entry (``bench_wgs`` ran in 4a): ``bench_kernels`` at
+    its three shapes (K3, K8, K9), every row agreeing; ``bench_v3_ab`` at
+    2^21 pairs (K6, K2, K1), v2 and v3 support identical and the hit sum
+    K1's and numpy's; ``bench_e2e`` at its default size with the ``cuda``
+    engine (K1), graph and cycles files equal to a ``numpy`` run's
+    (``--cn_engine numpy``); ``stress_scan`` at 4 chromosomes of 1.5 kb
+    reads, host code, every record built scanned.  Each tool's launches
+    are counted from zero; returns their sum."""
+    import torch
+
+    from coral_tpu_torch.ops import kernels
+    from coral_tpu_torch.ops.scoring import pair_predicate_packed3_np
+
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def counted(tool, expect, fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        for k in expect:
+            require(got[k] > 0, f"{tool}: {k} never launched: {got}")
+        for k, v in got.items():
+            launches[k] += v
+        log(f"[9 tools] {tool}: launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        return out
+
+    rows = counted("bench_kernels", ("pair6", "bin_overlap", "match_matrix"),
+                   lambda: list(bench_kernels.run("cuda")))
+    for row in rows:
+        log(json.dumps(row))
+    require(all(r["agree"] for r in rows[1:]) and len(rows) == 7,
+            f"bench_kernels: {rows}")
+    log("[9 tools] bench_kernels: 6 rows, every engine agrees")
+
+    ab = counted("bench_v3_ab", ("pair2_support", "pair3_support", "pair3"),
+                 lambda: bench_v3_ab.run(N_PAIRS, engine="cuda",
+                                         device="cuda"))
+    log(json.dumps(ab))
+    v3 = _bench_inputs()[0]
+    hit_np = int(pair_predicate_packed3_np(*v3, CUTOFF, GAP)[0].sum())
+    hit_k1 = int(kernels.pair3_hitmask(
+        *(torch.from_numpy(c).cuda() for c in v3), CUTOFF, GAP).sum())
+    require(ab["support_identical"], "bench_v3_ab: v2 and v3 support differ")
+    require(ab["hitmask_sum"] == hit_k1 == hit_np,
+            f"bench_v3_ab hits {ab['hitmask_sum']}, K1 {hit_k1}, numpy "
+            f"{hit_np}")
+    log(f"[9 tools] bench_v3_ab: support identical, {hit_k1} hits == K1's "
+        "and numpy's on the same pairs")
+
+    reports = {}
+    for engine, cn_engine in (("cuda", "auto"), ("numpy", "numpy")):
+        out = os.path.join(work, f"e2e_{engine}")
+        reports[engine] = counted(
+            f"bench_e2e --engine {engine}",
+            ("pair3",) if engine == "cuda" else (),
+            lambda: bench_e2e.run(out, E2E_JUNCTIONS, engine, cn_engine,
+                                  device="cuda"))
+        log(json.dumps({"tool": "bench_e2e", "engine": engine,
+                        "cn_engine": cn_engine, **reports[engine]}))
+    n_files = _same_files(os.path.join(work, "e2e_cuda"), "bench",
+                          os.path.join(work, "e2e_numpy"), "bench",
+                          ("graph", "cycles"))
+    require(reports["cuda"]["n_breakpoints"]
+            == reports["numpy"]["n_breakpoints"], "bench_e2e breakpoints")
+    log(f"[9 tools] bench_e2e: {n_files} graph and cycles files identical, "
+        "--engine cuda and --engine numpy --cn_engine numpy")
+
+    stress = counted("stress_scan", (), lambda: stress_scan.run(
+        os.path.join(work, "stress"), STRESS_CHROMS, STRESS_READ_LEN,
+        log=lambda line: log(f"[9 stress_scan] {line}")))
+    log(json.dumps({"tool": "stress_scan", **stress}))
+    require(stress["records"] == stress["records_built"] > 0,
+            "stress_scan: records scanned != built")
+    require(not any(kernels.LAUNCHES.values()),
+            "stress_scan launched a kernel")
+    log(f"[9 tools] stress_scan: {stress['records']} records scanned == "
+        "built")
+    log(f"[9 tools] launches in this phase: {launches}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2852,6 +2782,7 @@ def main() -> int:
         launches_pipe = phase_pipelined(rec, scoring)
         phase_routing(rec, scoring, work)
         phase_hybrid_cn(scoring)
+        launches_tools = phase_tools(work)
         rec.bam.close()
     with tempfile.TemporaryDirectory() as work:
         launches_match = phase_cluster_path(work, report)
@@ -2869,8 +2800,8 @@ def main() -> int:
                "stream_control": launches, "pair2": launches2,
                "pair2_support": launches2, "bin_overlap": launches_bins,
                "match_matrix": launches_match, "interval_index": launches6}
-    # and phase 7's sharded paths (K1, K3, the index, K8) and phase 8's
-    # pipelined scorer (K2)
+    # and phase 7's sharded paths (K1, K3, the index, K8), phase 8's
+    # pipelined scorer (K2) and phase 9's tools
     kern = []
     for name, (source, replaces) in KERNELS.items():
         rows = report[name]
@@ -2879,7 +2810,7 @@ def main() -> int:
         kern.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": counted[name][name] + launches_par[name]
-                     + launches_pipe[name],
+                     + launches_pipe[name] + launches_tools[name],
                      "max_abs_err": err, "ms": last["ms"],
                      "plain_ms": last["plain_ms"],
                      "bound_ms": last["bound_ms"],

@@ -34,11 +34,12 @@ the profiler saw in one call of each.
 
 Every call is held against its plain version first, then timed four ways:
 
-- ``ms``: median CUDA-event time of one call after an L2 flush (the
-  method of ``chip_smoke.cuda_ms``);
+- ``ms``: median CUDA-event time of one call after an L2 flush
+  (:func:`coral_tpu_torch.tools.bench_common.cuda_ms`, the timer of
+  ``chip_smoke.py`` and the other tools);
 - ``ms_wait``: the same with the card idle for about 0.1 ms after the
-  flush, so that the host has queued the whole call before the first
-  event (the card's time alone);
+  flush (``cuda_ms(..., wait=True)``), so that the host has queued the
+  whole call before the first event (the card's time alone);
 - ``device_us``: the profiler's device time of every kernel and memset
   the call launches (None where the profiler sees no device time; the
   names and µs of each are kept as ``launches``);
@@ -62,7 +63,6 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-IDLE_CYCLES = 200_000     # about 0.1 ms of the card's clock
 HOST_CALLS = 200
 WRAPPERS = ("pair6", "pair6_support", "interval_index", "pair6_routes",
             "bin_overlap", "pair3_support", "pair2_support", "breakpoints")
@@ -78,7 +78,7 @@ RATIOS = (("K4/K3", "pair6_support", "pair6"),
 # the shapes of chip_smoke's phases 4b and 4d without the sample
 N_DECOYS = 8190
 N_AMPLICONS = 10
-CHR_LEN = 159_345_973     # the sample's chromosomes (chip_smoke.WGS_CHR_LEN)
+CHR_LEN = 159_345_973     # the sample's chromosomes (bench_wgs.CHR_LEN)
 
 
 def wgs_like_reads():
@@ -122,28 +122,6 @@ def wgs_like_case6(decoys_first: bool, n: int = 1_500_000, seed: int = 23):
             (side_i << 14) | side_j]
     return ((ic.astype(np.int32), is_.astype(np.int32), ie.astype(np.int32)),
             [c.astype(np.int32) for c in cols])
-
-
-def event_ms(fn, wait: bool, reps: int = 30, warmup: int = 3) -> float:
-    import torch
-
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        flush.zero_()
-        if wait:
-            torch.cuda._sleep(IDLE_CYCLES)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def device_us(fn, reps: int = 20):
@@ -422,6 +400,13 @@ def child(root: str, sample: str, only: set) -> None:
 
     sys.path.insert(0, ROOT)
     import chip_smoke as cs   # this checkout's inputs
+    from coral_tpu_torch.tools.bench_common import cuda_ms
+
+    # the package comes anew from ``root``: chip_smoke imported this
+    # checkout's
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] == "coral_tpu_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, os.path.abspath(root))
     from coral_tpu_torch.ops import kernels
 
@@ -441,8 +426,8 @@ def child(root: str, sample: str, only: set) -> None:
                    f"{root}: {name} != plain ({case})")
         dev = device_us(call)
         rows.append(dict(case=case, kernel=name,
-                         ms=event_ms(call, wait=False),
-                         ms_wait=event_ms(call, wait=True),
+                         ms=cuda_ms(call),
+                         ms_wait=cuda_ms(call, wait=True),
                          device_us=None if dev is None else round(
                              sum(dev.values()), 2),
                          host_us=host_us(call), launches=dev))
@@ -472,12 +457,13 @@ def main(argv) -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from coral_tpu_torch.io.bam import BamFile
+    from coral_tpu_torch.tools.bench_wgs import build_junction_heavy
 
     roots = argv[0].split(",") + [ROOT]
     order = roots + [ROOT] + roots[-2::-1]
     runs = {}
     with tempfile.TemporaryDirectory() as work:
-        bam_path, cns, seeds, _ = cs.build_junction_heavy(work)
+        bam_path, cns, seeds, _ = build_junction_heavy(work)
         bam = BamFile(bam_path)
         first = bam.ref_id == 0
         sample = os.path.join(work, "sample.npz")

@@ -361,35 +361,3 @@ def test_packed6_tensor_predicate_equals_unpacked():
                                     math.inf)
     assert torch.equal(hit6, hit14) and torch.equal(io6, io14)
     assert hit6.any() and ((io6 >= 0) & ~hit6).any()
-
-
-def test_smoke_inputs_equal_the_benchmarks(tmp_path):
-    """``chip_smoke.py`` keeps its own copies of the JAX package's input
-    makers (it may import nothing of that package): same arrays, and the
-    same bytes for the replicated WGS sample at a small size."""
-    import bench
-    import chip_smoke
-    from tools import bench_wgs
-
-    a = chip_smoke.synth_scoring_batch(300, 16, seed=3)
-    b = bench.synth_scoring_batch(300, 16, seed=3)
-    for x, y in zip(a[:2] + a[3:], b[:2] + b[3:]):
-        np.testing.assert_array_equal(x, y)
-    assert list(a[2]) == list(b[2])
-    for k in a[2]:
-        np.testing.assert_array_equal(a[2][k], b[2][k])
-    for x, y in zip(chip_smoke.synth_alignment_table(a[2]),
-                    bench.synth_alignment_table(b[2])):
-        assert x.dtype == y.dtype
-        np.testing.assert_array_equal(x, y)
-    kw = dict(read_len=1500, n_junction_reads=40, junction_flank=50,
-              bg_cov=1)
-    (tmp_path / "port").mkdir()
-    (tmp_path / "jax").mkdir()
-    got = chip_smoke.build_wgs_sample(str(tmp_path / "port"), name="s", **kw)
-    want = bench_wgs.build(str(tmp_path / "jax"), name="s", **kw)
-    assert got[3] == want[3] > 0
-    for g, w in zip(got[:3], want[:3]):
-        with open(g, "rb") as fg, open(w, "rb") as fw:
-            assert fg.read() == fw.read()
-    assert chip_smoke.WGS_CHROMS == bench_wgs.CHROMS
