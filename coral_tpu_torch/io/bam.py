@@ -24,6 +24,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..tracing import span
 from .bgzf import iter_blocks
 
 # CIGAR op codes
@@ -383,8 +384,10 @@ class BamFile:
         if self.backend == "native":
             from ..native import bamcore
             lo, hi = self.overlap_range(chrom, start, stop)
-            return bamcore.coverage_sum(
-                self, lo, hi, start, stop, quality_threshold, flag_exclude, min_mapq)
+            with span("decode.coverage_sum"):
+                return bamcore.coverage_sum(
+                    self, lo, hi, start, stop, quality_threshold,
+                    flag_exclude, min_mapq)
         total = 0
         for rec in self.decode_region(chrom, start, stop):
             if rec.flag & flag_exclude or rec.mapq < min_mapq:
@@ -411,8 +414,10 @@ class BamFile:
         if self.backend == "native":
             from ..native import bamcore
             lo, hi = self.overlap_range(chrom, start, stop)
-            return bamcore.coverage_profile(
-                self, lo, hi, start, stop, quality_threshold, flag_exclude, min_mapq)
+            with span("decode.coverage_profile"):
+                return bamcore.coverage_profile(
+                    self, lo, hi, start, stop, quality_threshold,
+                    flag_exclude, min_mapq)
         out = np.zeros(stop - start, np.int64)
         for rec in self.decode_region(chrom, start, stop):
             if rec.flag & flag_exclude or rec.mapq < min_mapq:
@@ -452,8 +457,9 @@ class BamFile:
         if self.backend == "native":
             from ..native import bamcore
             lo, hi = self.overlap_range(chrom, start, stop)
-            rec, nxt, prv, bf, bl = bamcore.del_gaps(
-                self, lo, hi, start, min_del_len, min_mapq)
+            with span("decode.del_gaps"):
+                rec, nxt, prv, bf, bl = bamcore.del_gaps(
+                    self, lo, hi, start, min_del_len, min_mapq)
             out = []
             k = 0
             while k < rec.size:

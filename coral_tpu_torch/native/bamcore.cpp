@@ -11,12 +11,18 @@
 //     thresholds and flag filters) and large-deletion gap extraction.
 //
 // Exposed as a C ABI for ctypes; no Python headers required.
+//
+// Two process-wide counters of payload bytes inflated, read by
+// bc_counters(): by the scan (scan_inflated_bytes) and by region decodes
+// (decode_inflated_bytes).  They live outside any handle, so they outlast
+// bc_close, and count always (one relaxed add per window or block).
 
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
 #include <cstdlib>
 #include <algorithm>
+#include <atomic>
 #include <limits>
 #include <string>
 #include <string_view>
@@ -28,6 +34,9 @@
 #include <zlib.h>
 
 namespace {
+
+std::atomic<int64_t> g_scan_inflated{0};
+std::atomic<int64_t> g_decode_inflated{0};
 
 constexpr uint32_t kRefConsuming = (1u << 0) | (1u << 2) | (1u << 3) | (1u << 7) | (1u << 8);
 constexpr uint32_t kAligned = (1u << 0) | (1u << 7) | (1u << 8);
@@ -383,13 +392,6 @@ bool scan_file(BamCore* bc, int nthreads) {
   FILE* fp = bc->fp;
   fseek(fp, 0, SEEK_SET);
   Scanner sc(bc, nthreads);
-  const bool timing = getenv("BC_TIMING") != nullptr;
-  double t_win = 0, t_p1 = 0, t_p2 = 0, t_p3 = 0, t_drop = 0;
-  auto now = []() {
-    struct timespec ts;
-    clock_gettime(CLOCK_MONOTONIC, &ts);
-    return ts.tv_sec + ts.tv_nsec * 1e-9;
-  };
 
   // Window loop: read W block headers + compressed bytes, inflate in
   // parallel, append to sc.buf, then parse as many whole records as the
@@ -450,14 +452,13 @@ bool scan_file(BamCore* bc, int nthreads) {
     for (int t = 0; t < nt; t++) {
       if (!errs[t].empty()) { bc->error = errs[t]; return false; }
     }
+    g_scan_inflated.fetch_add(total, std::memory_order_relaxed);
     return true;
   };
 
   while (true) {
     size_t before = sc.buf.size();
-    double t0 = timing ? now() : 0;
     if (!append_window()) return false;
-    if (timing) t_win += now() - t0;
     if (sc.buf.size() == before) break;  // EOF
 
     // parse BAM header once
@@ -496,7 +497,6 @@ bool scan_file(BamCore* bc, int nthreads) {
     }
 
     // phase 1: cheap boundary discovery over the buffered region
-    if (timing) t0 = now();
     std::vector<int64_t> rec_offs;
     std::vector<uint64_t> rec_voffs;
     while (true) {
@@ -516,7 +516,6 @@ bool scan_file(BamCore* bc, int nthreads) {
       rec_voffs.push_back(sc.voffset_of(parse_gpos));
       parse_gpos += 4 + block_size;
     }
-    if (timing) { t_p1 += now() - t0; t0 = now(); }
 
     // phase 2: parallel field extraction, written DIRECTLY into the
     // final structure-of-arrays (disjoint global indices per thread; no
@@ -561,7 +560,6 @@ bool scan_file(BamCore* bc, int nthreads) {
       for (int t = 0; t < nt; t++) {
         if (!errs[t].empty()) { bc->error = errs[t]; return false; }
       }
-      if (timing) { t_p2 += now() - t0; t0 = now(); }
       // phase 3: prefix-sum the blob offsets for this window, grow the
       // blobs, then copy name/SA bytes in parallel straight from the
       // inflated window buffer
@@ -599,15 +597,8 @@ bool scan_file(BamCore* bc, int nthreads) {
         });
       }
       for (auto& c : copiers) c.join();
-      if (timing) { t_p3 += now() - t0; t0 = now(); }
     }
     sc.drop_consumed(parse_gpos);
-    if (timing) t_drop += now() - t0;
-  }
-  if (timing) {
-    fprintf(stderr,
-            "bc_scan timing: window=%.2fs p1=%.2fs p2=%.2fs "
-            "merge=%.2fs drop=%.2fs\n", t_win, t_p1, t_p2, t_p3, t_drop);
   }
   // loud EOF validation (matching the python backend): a file with no
   // BAM header, or trailing unparsed payload bytes (truncation at a
@@ -655,6 +646,7 @@ bool decode_range(BamCore* bc, int64_t lo, int64_t hi, F&& fn) {
     size_t old = buf.size();
     buf.resize(old + bi.usize);
     if (!inflate_block(member.data(), bi, buf.data() + old, &bc->error)) return false;
+    g_decode_inflated.fetch_add(bi.usize, std::memory_order_relaxed);
     next_coffset = bi.coffset + bi.csize;
     if (first_block) {
       first_block = false;
@@ -960,6 +952,16 @@ BamCore* bc_open_cached(const char* path, const char* cache_path,
 
 int32_t bc_from_cache(BamCore* bc) { return bc->from_cache ? 1 : 0; }
 
+// The process-wide counters, in this order: scan_inflated_bytes,
+// decode_inflated_bytes.  Writes the first min(n, 2) into out and returns
+// how many there are.
+int bc_counters(int64_t* out, int n) {
+  const int64_t v[2] = {g_scan_inflated.load(std::memory_order_relaxed),
+                        g_decode_inflated.load(std::memory_order_relaxed)};
+  for (int i = 0; i < n && i < 2; i++) out[i] = v[i];
+  return 2;
+}
+
 void bc_close(BamCore* bc) { delete bc; }
 const char* bc_error(BamCore* bc) { return bc->error.empty() ? nullptr : bc->error.c_str(); }
 int64_t bc_nrecords(BamCore* bc) { return static_cast<int64_t>(bc->flag.size()); }
@@ -981,12 +983,6 @@ const uint8_t* bc_sa_blob(BamCore* bc) { return bc->sa_blob.data(); }
 int64_t bc_sa_blob_len(BamCore* bc) { return static_cast<int64_t>(bc->sa_blob.size()); }
 const int64_t* bc_sa_off(BamCore* bc) { return bc->sa_off.data(); }
 const int64_t* bc_sa_len(BamCore* bc) { return bc->sa_len.data(); }
-
-static double now_s() {
-  struct timespec ts;
-  clock_gettime(CLOCK_MONOTONIC, &ts);
-  return ts.tv_sec + ts.tv_nsec * 1e-9;
-}
 
 // Open-addressing name->slot table (FNV-1a, linear probing, pow2 cap
 // >= 2x the worst-case key count so the load factor stays <= 0.5, no
@@ -1045,8 +1041,6 @@ struct NameSlotTable {
 };
 
 int64_t bc_parse_sa(BamCore* bc) {
-  const bool dbg = getenv("BC_TIMING") != nullptr;
-  double t0 = dbg ? now_s() : 0;
   // Assemble per-read chimeric alignments from SA tags: union of unique SA
   // entries across all of a read's records (each record lists the others),
   // decoded with the generic CIGAR-span formula and sorted by query start.
@@ -1188,7 +1182,6 @@ int64_t bc_parse_sa(BamCore* bc) {
         }
       }
     }
-    if (dbg) { fprintf(stderr, "[bc_parse_sa] slot/split: %.3fs\n", now_s() - t0); t0 = now_s(); }
     // fallback for chimeric reads whose primary record carries no SA
     // tag (possible but unusual): only then scan the whole BAM for
     // primaries.  The in-pass capture above resolves everything when
@@ -1203,7 +1196,6 @@ int64_t bc_parse_sa(BamCore* bc) {
       }
     }
   }
-  if (dbg) { fprintf(stderr, "[bc_parse_sa] read_len: %.3fs\n", now_s() - t0); t0 = now_s(); }
   // parse + sort + emit, threaded over contiguous slot ranges: each
   // worker fills private column vectors, then a sequential slot-order
   // concatenation reproduces the single-threaded emission byte-for-byte
@@ -1308,8 +1300,6 @@ int64_t bc_parse_sa(BamCore* bc) {
       bc->chim_off.push_back(off);
     }
   }
-  if (dbg) fprintf(stderr, "[bc_parse_sa] parse/emit[%d threads]: %.3fs\n",
-                   nt, now_s() - t0);
   return static_cast<int64_t>(bc->chim_rec.size());
 }
 

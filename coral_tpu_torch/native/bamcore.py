@@ -1,9 +1,10 @@
 """ctypes bindings for the native BAM core (``bamcore.cpp``).
 
 Exposes ``scan_into(bamfile, path)`` which populates a
-``coral_tpu.io.bam.BamFile`` with zero-copy numpy views over the C++
+``coral_tpu_torch.io.bam.BamFile`` with zero-copy numpy views over the C++
 structure-of-arrays record table, plus region-query wrappers used by
-``BamFile`` when the native backend is active.
+``BamFile`` when the native backend is active, and ``counters()``, the
+library's process-wide counts of payload bytes inflated.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import os
 import numpy as np
 
 from . import _build
+from ..tracing import span
 
 _lib = None
 
@@ -28,6 +30,8 @@ def _load():
     lib.bc_from_cache.restype = C.c_int32
     lib.bc_from_cache.argtypes = [C.c_void_p]
     lib.bc_close.argtypes = [C.c_void_p]
+    lib.bc_counters.restype = C.c_int
+    lib.bc_counters.argtypes = [C.POINTER(C.c_int64), C.c_int]
     lib.bc_error.restype = C.c_char_p
     lib.bc_error.argtypes = [C.c_void_p]
     lib.bc_nrecords.restype = C.c_int64
@@ -141,7 +145,8 @@ def scan_into(bam, path: str, cache_path: str | None = None) -> None:
     """Populate a BamFile's table from the native scanner (or its scan
     cache — see ``bc_open_cached``: the cache loads when it matches the
     BAM's (size, mtime) and is written after a fresh scan otherwise)."""
-    nb = NativeBam(path, cache_path=cache_path)
+    with span("bam.scan"):
+        nb = NativeBam(path, cache_path=cache_path)
     bam.scan_from_cache = nb.from_cache
     lib, h = nb._lib, nb._h
     n = lib.bc_nrecords(h)
@@ -165,6 +170,19 @@ def scan_into(bam, path: str, cache_path: str | None = None) -> None:
     bam.sa_len = _as_np(lib.bc_sa_len(h), np.int64, n)
     sb_len = lib.bc_sa_blob_len(h)
     bam.sa_blob = bytes(_as_np(lib.bc_sa_blob(h), np.uint8, sb_len)) if sb_len else b""
+
+
+COUNTERS = ("scan_inflated_bytes", "decode_inflated_bytes")
+
+
+def counters() -> dict:
+    """The library's counters of BGZF payload bytes inflated in this
+    process, by the scan and by region decodes; they survive ``bc_close``.
+    Raises OSError when the library cannot be built."""
+    lib = _load()
+    out = (C.c_int64 * len(COUNTERS))()
+    lib.bc_counters(out, len(COUNTERS))
+    return dict(zip(COUNTERS, map(int, out)))
 
 
 def parse_sa(bam):

@@ -25,6 +25,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..tracing import span
+
 logger = logging.getLogger(__name__)
 
 _CIG_RE = re.compile(r"(\d+)([A-Z=])")
@@ -255,7 +257,8 @@ def collect_chimeras(bam) -> Tuple[dict, dict, list]:
 
     if bam.backend == "native":
         from ..native import bamcore
-        chim_rec, chim_rl, chim_off, cols = bamcore.parse_sa(bam)
+        with span("chimera.parse_sa"):
+            chim_rec, chim_rl, chim_off, cols = bamcore.parse_sa(bam)
         store = ChimeraStore(bam, chim_rec, chim_off, cols)
         # read lengths only needed for chimeric reads downstream; the
         # native scan already collected them.  dict(zip(...)) over

@@ -37,6 +37,7 @@ import torch
 
 from ..constants import CHR_IDX
 from ..device import resolve_device
+from ..tracing import span
 from . import routing
 from .routing import MIN_DEVICE_PAIRS
 from .scoring import MAX_PACKED2_INTERVALS
@@ -241,18 +242,19 @@ def find_breakpoints_device(
         reason = f"mesh axis {mesh_axis} of {mesh.shape[mesh_axis]}; {reason}"
     logger.info("pair scoring route: engine=%s (%d pairs; %s)",
                 engine, n_pairs, reason)
-    t0 = time.perf_counter()
-    if mesh is None:
-        pi, pj, hits = score_pairs_l(
-            table, intervals, min_bp_match_cutoff, min_mapq, gap_,
-            nm_resolved, engine=engine, device=dev)
-    else:
-        from ..parallel.sharded import score_pairs_sharded
+    with span("pair_scoring"):
+        t0 = time.perf_counter()
+        if mesh is None:
+            pi, pj, hits = score_pairs_l(
+                table, intervals, min_bp_match_cutoff, min_mapq, gap_,
+                nm_resolved, engine=engine, device=dev)
+        else:
+            from ..parallel.sharded import score_pairs_sharded
 
-        pi, pj, hits = score_pairs_sharded(
-            table, intervals, min_bp_match_cutoff, min_mapq, gap_, mesh,
-            mesh_axis, nm_resolved, engine=engine)
-    dt = time.perf_counter() - t0
+            pi, pj, hits = score_pairs_sharded(
+                table, intervals, min_bp_match_cutoff, min_mapq, gap_, mesh,
+                mesh_axis, nm_resolved, engine=engine)
+        dt = time.perf_counter() - t0
     logger.info("pair scoring route: engine=%s scored %d pairs in %.3fs",
                 engine, n_pairs, dt)
     _route_seq[0] += 1

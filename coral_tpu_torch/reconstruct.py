@@ -49,6 +49,7 @@ from .ops.chimera import collect_chimeras
 
 from .device import resolve_device
 from .graph.cn_solver import compute_cn
+from .tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -1450,12 +1451,14 @@ def reconstruct_cycles(rec: Reconstruction, output_prefix: str,
     from .cycles.decomposition import cycle_decomposition
     from .cycles.output import output_cycles
 
-    rec.compute_path_constraints()
-    cycle_decomposition(rec, rec.cfg.cycles, model_prefix=output_prefix)
-    output_cycles(rec, output_prefix,
-                  output_all_paths=output_all_path_constraints,
-                  eulerian_seed=rec.cfg.cycles.eulerian_seed,
-                  max_trials=rec.cfg.cycles.eulerian_max_trials)
+    with span("cycles"):
+        with span("path_constraints"):
+            rec.compute_path_constraints()
+        cycle_decomposition(rec, rec.cfg.cycles, model_prefix=output_prefix)
+        output_cycles(rec, output_prefix,
+                      output_all_paths=output_all_path_constraints,
+                      eulerian_seed=rec.cfg.cycles.eulerian_seed,
+                      max_trials=rec.cfg.cycles.eulerian_max_trials)
 
 
 def reconstruct_graphs(
@@ -1474,36 +1477,43 @@ def reconstruct_graphs(
     ``infer_breakpoint_graph.py:1333-1395``).  ``scan_cache`` enables the
     BAM scan-resume checkpoint (``BamFile(scan_cache=True)``).  ``device``
     is where the device engines (``cfg.engine``) run; ``mesh`` shards pair
-    scoring and the CN balance (the batch engine) over its ``dp`` axis."""
+    scoring and the CN balance (the batch engine) over its ``dp`` axis.
+    Each stage runs under a :func:`.tracing.span` of its name."""
     from .graph.breakpoint_graph import write_breakpoints_file, write_graph_file
 
-    bam = BamFile(lr_bam, scan_cache=scan_cache)
-    if bam.scan_from_cache:
-        logger.info("BAM record table restored from scan cache (%s.scanx)",
-                    lr_bam)
-    rec = Reconstruction(bam, cnv_seed, cfg, device=device)
-    rec.read_cns(cn_seg)
-    rec.collect()
-    rec.hash_to_segments()
-    rec.find_amplicon_intervals()
-    rec.find_smalldel_breakpoints()
-    rec.find_breakpoints(mesh=mesh)
-    rec.build_graph()
-    if output_bp:
-        for gi, g in enumerate(rec.graphs):
-            stats = []
-            for de in g.discordant_edges:
-                for bpi, bp in enumerate(rec.new_bp_list):
-                    if (de.chrom1 == bp[0] and de.pos1 == bp[1] and de.o1 == bp[2]
-                            and de.chrom2 == bp[3] and de.pos2 == bp[4]
-                            and de.o2 == bp[5]):
-                        stats.append(rec.new_bp_stats[bpi])
-                        break
-            write_breakpoints_file(
-                g, f"{output_prefix}_amplicon{gi + 1}_breakpoints.txt", stats)
-    else:
-        rec.assign_cov()
-        rec.compute_cn(mesh=mesh)
-        for gi, g in enumerate(rec.graphs):
-            write_graph_file(g, f"{output_prefix}_amplicon{gi + 1}_graph.txt")
+    with span("scan_collect"):
+        bam = BamFile(lr_bam, scan_cache=scan_cache)
+        if bam.scan_from_cache:
+            logger.info("BAM record table restored from scan cache "
+                        "(%s.scanx)", lr_bam)
+        rec = Reconstruction(bam, cnv_seed, cfg, device=device)
+        rec.read_cns(cn_seg)
+        rec.collect()
+    with span("interval_search"):
+        rec.hash_to_segments()
+        rec.find_amplicon_intervals()
+        rec.find_smalldel_breakpoints()
+    with span("breakpoints", sync=True):
+        rec.find_breakpoints(mesh=mesh)
+    with span("graph_cn", sync=True):
+        rec.build_graph()
+        if output_bp:
+            for gi, g in enumerate(rec.graphs):
+                stats = []
+                for de in g.discordant_edges:
+                    for bpi, bp in enumerate(rec.new_bp_list):
+                        if (de.chrom1 == bp[0] and de.pos1 == bp[1]
+                                and de.o1 == bp[2] and de.chrom2 == bp[3]
+                                and de.pos2 == bp[4] and de.o2 == bp[5]):
+                            stats.append(rec.new_bp_stats[bpi])
+                            break
+                write_breakpoints_file(
+                    g, f"{output_prefix}_amplicon{gi + 1}_breakpoints.txt",
+                    stats)
+        else:
+            rec.assign_cov()
+            rec.compute_cn(mesh=mesh)
+            for gi, g in enumerate(rec.graphs):
+                write_graph_file(
+                    g, f"{output_prefix}_amplicon{gi + 1}_graph.txt")
     return rec

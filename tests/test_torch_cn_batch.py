@@ -168,12 +168,17 @@ def test_resolver():
         tc.resolve_cn_engine("jax", 1)
 
 
-def test_reconstruct_logs_the_route(tmp_path, caplog):
+def test_reconstruct_logs_the_route(tmp_path, caplog, monkeypatch):
     """``Reconstruction.compute_cn`` resolves with the config's threshold
     and logs the route it took."""
     import logging
 
     from coral_tpu_torch.sim import simulate_ecdna
+
+    # the CLI run by an earlier test in this process may have stopped the
+    # package logger's propagation (tracing.setup_file_logging)
+    monkeypatch.setattr(logging.getLogger("coral_tpu_torch"), "propagate",
+                        True)
 
     d = str(tmp_path)
     bam, cns, seeds = simulate_ecdna(d, jitter=0)

@@ -90,8 +90,10 @@ def test_cli_help_and_cuda_request(tmp_path, capsys):
 
 
 # The only functions of the port's reconstruct.py that may differ from
-# the JAX package's: they carry the device (and no longer the mesh).
-PLUMBING = {"find_breakpoints", "compute_cn", "reconstruct_graphs"}
+# the JAX package's: they carry the device (and no longer the mesh), and
+# the two entry points run their stages under the port's tracing spans.
+PLUMBING = {"find_breakpoints", "compute_cn", "reconstruct_graphs",
+            "reconstruct_cycles"}
 
 
 def _allowed_lines(src: str):
@@ -105,8 +107,8 @@ def _allowed_lines(src: str):
 
 def test_reconstruct_drift_guard():
     """``coral_tpu_torch/reconstruct.py`` is ``coral_tpu/reconstruct.py``
-    but for import lines and the device plumbing: any other edit to
-    either file must be made to both."""
+    but for import lines, the device plumbing and the stage spans: any
+    other edit to either file must be made to both."""
     with open(os.path.join(ROOT, "coral_tpu", "reconstruct.py")) as fh:
         src_j = fh.read()
     with open(os.path.join(ROOT, "coral_tpu_torch", "reconstruct.py")) as fh:
