@@ -12,10 +12,11 @@
 //
 // Exposed as a C ABI for ctypes; no Python headers required.
 //
-// Two process-wide counters of payload bytes inflated, read by
-// bc_counters(): by the scan (scan_inflated_bytes) and by region decodes
-// (decode_inflated_bytes).  They live outside any handle, so they outlast
-// bc_close, and count always (one relaxed add per window or block).
+// Three process-wide counters of payload bytes inflated, read by
+// bc_counters(): by the scan (scan_inflated_bytes), by region decodes
+// (decode_inflated_bytes), and the part of the latter inflated on more
+// than one thread (decode_pooled_bytes).  They live outside any handle,
+// so they outlast bc_close, and count always (one relaxed add a window).
 
 #include <cstdint>
 #include <cstdio>
@@ -37,6 +38,7 @@ namespace {
 
 std::atomic<int64_t> g_scan_inflated{0};
 std::atomic<int64_t> g_decode_inflated{0};
+std::atomic<int64_t> g_decode_pooled{0};
 
 constexpr uint32_t kRefConsuming = (1u << 0) | (1u << 2) | (1u << 3) | (1u << 7) | (1u << 8);
 constexpr uint32_t kAligned = (1u << 0) | (1u << 7) | (1u << 8);
@@ -99,6 +101,7 @@ struct BamCore {
   FILE* fp = nullptr;
   std::string error;
   bool from_cache = false;   // record table loaded from a scan cache
+  int nthreads = 1;          // threads a region decode inflates on
 
   // chimera tables (filled by bc_parse_sa)
   std::vector<int64_t> chim_rec;    // representative record idx per read
@@ -388,6 +391,42 @@ bool parse_record_direct(const uint8_t* base, int64_t off, BamCore* bc,
   return true;
 }
 
+// Inflate members[i], described by infos[i], to out + dst[i] for every
+// member of infos, on nt threads: member i on thread i mod nt (nt 1: on
+// the calling thread).  On failure *err is the error of the first thread
+// that had one.
+bool inflate_members(const std::vector<BlockInfo>& infos,
+                     const std::vector<std::vector<uint8_t>>& members,
+                     const int64_t* dst, uint8_t* out, int nt,
+                     std::string* err) {
+  const size_t k = infos.size();
+  if (nt <= 1) {
+    for (size_t i = 0; i < k; i++) {
+      if (!inflate_block(members[i].data(), infos[i], out + dst[i], err)) {
+        return false;
+      }
+    }
+    return true;
+  }
+  std::string errs[64];
+  std::vector<std::thread> threads;
+  for (int t = 0; t < nt; t++) {
+    threads.emplace_back([&, t]() {
+      for (size_t i = t; i < k; i += nt) {
+        if (!inflate_block(members[i].data(), infos[i], out + dst[i],
+                           &errs[t])) {
+          return;
+        }
+      }
+    });
+  }
+  for (auto& th : threads) th.join();
+  for (int t = 0; t < nt; t++) {
+    if (!errs[t].empty()) { *err = errs[t]; return false; }
+  }
+  return true;
+}
+
 bool scan_file(BamCore* bc, int nthreads) {
   FILE* fp = bc->fp;
   fseek(fp, 0, SEEK_SET);
@@ -435,22 +474,9 @@ bool scan_file(BamCore* bc, int nthreads) {
       acc += infos[i].usize;
     }
     // parallel inflate
-    std::string errs[64];
-    int nt = sc.nthreads > 64 ? 64 : sc.nthreads;
-    std::vector<std::thread> threads;
-    for (int t = 0; t < nt; t++) {
-      threads.emplace_back([&, t]() {
-        for (size_t i = t; i < infos.size(); i += nt) {
-          if (!inflate_block(members[i].data(), infos[i],
-                             sc.buf.data() + dst_off[i], &errs[t])) {
-            return;
-          }
-        }
-      });
-    }
-    for (auto& th : threads) th.join();
-    for (int t = 0; t < nt; t++) {
-      if (!errs[t].empty()) { bc->error = errs[t]; return false; }
+    if (!inflate_members(infos, members, dst_off.data(), sc.buf.data(),
+                         sc.nthreads, &bc->error)) {
+      return false;
     }
     g_scan_inflated.fetch_add(total, std::memory_order_relaxed);
     return true;
@@ -617,60 +643,116 @@ bool scan_file(BamCore* bc, int nthreads) {
 
 // ---- region decode ------------------------------------------------------
 
+// One window of a region decode: whole BGZF members read in file order,
+// then inflated back to back into `data`.  The member buffers and `data`
+// keep their capacity from window to window of one decode.
+struct DecodeWindow {
+  std::vector<BlockInfo> infos;
+  std::vector<std::vector<uint8_t>> members;
+  std::vector<int64_t> dst;   // offset of each member's payload in data
+  dvec<uint8_t> data;
+};
+
+// Read up to W members from *next_c on, none that starts at or past end_c
+// (the first always).  A read failure after the first member ends the
+// window and goes to *deferred: the caller reports it only if it needs the
+// bytes past the window.  Returns false with *err set when no member could
+// be read.
+bool read_window(FILE* fp, int64_t* next_c, int64_t end_c, int W,
+                 DecodeWindow* w, std::string* deferred, std::string* err) {
+  w->infos.clear();
+  if (static_cast<int>(w->members.size()) < W) w->members.resize(W);
+  while (w->infos.empty() ||
+         (*next_c < end_c && static_cast<int>(w->infos.size()) < W)) {
+    BlockInfo bi;
+    std::string e;
+    if (!read_block_seq(fp, *next_c, &bi, &w->members[w->infos.size()], &e)) {
+      if (e.empty()) e = "unexpected EOF in region decode";
+      if (w->infos.empty()) { *err = e; return false; }
+      *deferred = e;
+      break;
+    }
+    *next_c = bi.coffset + bi.csize;
+    w->infos.push_back(bi);
+  }
+  return true;
+}
+
+// Inflate the window's members into w->data after its first `keep` bytes,
+// on as many of the handle's nthreads as the window has members.
+bool inflate_window(DecodeWindow* w, int64_t keep, int nthreads,
+                    std::string* err) {
+  const size_t k = w->infos.size();
+  w->dst.resize(k);
+  int64_t total = 0;
+  for (size_t i = 0; i < k; i++) {
+    w->dst[i] = keep + total;
+    total += w->infos[i].usize;
+  }
+  w->data.resize(keep + total);
+  const int nt = static_cast<int>(std::min<size_t>(nthreads, k));
+  if (!inflate_members(w->infos, w->members, w->dst.data(), w->data.data(),
+                       nt, err)) {
+    return false;
+  }
+  g_decode_inflated.fetch_add(total, std::memory_order_relaxed);
+  if (nt > 1) g_decode_pooled.fetch_add(total, std::memory_order_relaxed);
+  return true;
+}
+
 // Callback-driven decode of records [lo, hi) using stored voffsets.
+// The members from the one that holds record lo's first byte to the one
+// that holds record hi-1's last byte are read in windows of 16 per thread
+// of the handle (at most 256) and inflated a window at a time; the calling
+// thread walks each window's records in record order, and the head of a
+// record split across windows moves to the front of the next.  No window
+// reaches past that last member, so a decode inflates the same members as
+// one that reads a member whenever the walk needs more bytes.
 template <typename F>
 bool decode_range(BamCore* bc, int64_t lo, int64_t hi, F&& fn) {
   if (lo >= hi) return true;
   FILE* fp = bc->fp;
-  int64_t coffset = static_cast<int64_t>(bc->voffset[lo] >> 16);
-  int64_t skip = static_cast<int64_t>(bc->voffset[lo] & 0xFFFF);
-  fseek(fp, coffset, SEEK_SET);
-  std::vector<uint8_t> buf;
-  std::vector<uint8_t> member;
-  int64_t consumed = 0;  // bytes consumed from buf
-  int64_t next_coffset = coffset;
-  bool first_block = true;
-
-  auto more = [&]() -> bool {
-    // read_block_seq streams the whole member in one buffered pass;
-    // consecutive calls are sequential, so the fseek stays inside the
-    // stdio readahead buffer (the old read_block_header variant paid
-    // ~4 seeks + a full re-read per 64 KiB block on this hot path)
-    BlockInfo bi;
-    fseek(fp, next_coffset, SEEK_SET);
-    if (!read_block_seq(fp, next_coffset, &bi, &member, &bc->error)) {
-      if (bc->error.empty())
-        bc->error = "unexpected EOF in region decode";
-      return false;
-    }
-    size_t old = buf.size();
-    buf.resize(old + bi.usize);
-    if (!inflate_block(member.data(), bi, buf.data() + old, &bc->error)) return false;
-    g_decode_inflated.fetch_add(bi.usize, std::memory_order_relaxed);
-    next_coffset = bi.coffset + bi.csize;
-    if (first_block) {
-      first_block = false;
-      buf.erase(buf.begin(), buf.begin() + skip);
-    }
-    return true;
+  int64_t next_c = static_cast<int64_t>(bc->voffset[lo] >> 16);
+  int64_t pos = static_cast<int64_t>(bc->voffset[lo] & 0xFFFF);
+  // members that start below end_c hold bytes of records [lo, hi): up to
+  // the member of voffset[hi] if record hi starts inside it, else the ones
+  // before it; after the last record, the rest of the file
+  int64_t end_c;
+  if (hi < static_cast<int64_t>(bc->voffset.size())) {
+    const uint64_t v = bc->voffset[hi];
+    end_c = static_cast<int64_t>(v >> 16) + ((v & 0xFFFF) ? 1 : 0);
+  } else {
+    struct stat st;
+    end_c = fstat(fileno(fp), &st) == 0 ? static_cast<int64_t>(st.st_size)
+                                        : std::numeric_limits<int64_t>::max();
+  }
+  const int W = std::min(256, 16 * bc->nthreads);
+  DecodeWindow w;
+  std::string deferred;
+  int64_t keep = 0;   // bytes of the window before its members' payload
+  fseek(fp, next_c, SEEK_SET);
+  auto next_window = [&]() -> bool {
+    if (!deferred.empty()) { bc->error = deferred; return false; }
+    return read_window(fp, &next_c, end_c, W, &w, &deferred, &bc->error) &&
+           inflate_window(&w, keep, bc->nthreads, &bc->error);
   };
-
+  if (!next_window()) return false;
   for (int64_t i = lo; i < hi; i++) {
-    // ensure block_size available
-    while (buf.size() - consumed < 4) {
-      if (!more()) return false;
-    }
     int32_t block_size;
-    memcpy(&block_size, buf.data() + consumed, 4);
-    while (static_cast<int64_t>(buf.size()) - consumed < 4 + block_size) {
-      if (!more()) return false;
+    while (true) {
+      const int64_t left = static_cast<int64_t>(w.data.size()) - pos;
+      if (left >= 4) {
+        memcpy(&block_size, w.data.data() + pos, 4);
+        if (left >= 4 + static_cast<int64_t>(block_size)) break;
+      }
+      // this window ends inside record i: its head opens the next window
+      keep = left;
+      memmove(w.data.data(), w.data.data() + pos, keep);
+      pos = 0;
+      if (!next_window()) return false;
     }
-    fn(i, buf.data() + consumed + 4, block_size);
-    consumed += 4 + block_size;
-    if (consumed > (1 << 20)) {
-      buf.erase(buf.begin(), buf.begin() + consumed);
-      consumed = 0;
-    }
+    fn(i, w.data.data() + pos + 4, block_size);
+    pos += 4 + block_size;
   }
   return true;
 }
@@ -915,6 +997,7 @@ extern "C" {
 BamCore* bc_open(const char* path, int nthreads) {
   auto* bc = new BamCore();
   bc->path = path;
+  bc->nthreads = nthreads < 1 ? 1 : (nthreads > 64 ? 64 : nthreads);
   bc->fp = fopen(path, "rb");
   if (!bc->fp) {
     bc->error = "cannot open file";
@@ -933,6 +1016,7 @@ BamCore* bc_open_cached(const char* path, const char* cache_path,
                         int nthreads) {
   auto* bc = new BamCore();
   bc->path = path;
+  bc->nthreads = nthreads < 1 ? 1 : (nthreads > 64 ? 64 : nthreads);
   bc->fp = fopen(path, "rb");
   if (!bc->fp) {
     bc->error = "cannot open file";
@@ -953,13 +1037,14 @@ BamCore* bc_open_cached(const char* path, const char* cache_path,
 int32_t bc_from_cache(BamCore* bc) { return bc->from_cache ? 1 : 0; }
 
 // The process-wide counters, in this order: scan_inflated_bytes,
-// decode_inflated_bytes.  Writes the first min(n, 2) into out and returns
-// how many there are.
+// decode_inflated_bytes, decode_pooled_bytes.  Writes the first min(n, 3)
+// into out and returns how many there are.
 int bc_counters(int64_t* out, int n) {
-  const int64_t v[2] = {g_scan_inflated.load(std::memory_order_relaxed),
-                        g_decode_inflated.load(std::memory_order_relaxed)};
-  for (int i = 0; i < n && i < 2; i++) out[i] = v[i];
-  return 2;
+  const int64_t v[3] = {g_scan_inflated.load(std::memory_order_relaxed),
+                        g_decode_inflated.load(std::memory_order_relaxed),
+                        g_decode_pooled.load(std::memory_order_relaxed)};
+  for (int i = 0; i < n && i < 3; i++) out[i] = v[i];
+  return 3;
 }
 
 void bc_close(BamCore* bc) { delete bc; }

@@ -172,13 +172,15 @@ def scan_into(bam, path: str, cache_path: str | None = None) -> None:
     bam.sa_blob = bytes(_as_np(lib.bc_sa_blob(h), np.uint8, sb_len)) if sb_len else b""
 
 
-COUNTERS = ("scan_inflated_bytes", "decode_inflated_bytes")
+COUNTERS = ("scan_inflated_bytes", "decode_inflated_bytes",
+            "decode_pooled_bytes")
 
 
 def counters() -> dict:
     """The library's counters of BGZF payload bytes inflated in this
-    process, by the scan and by region decodes; they survive ``bc_close``.
-    Raises OSError when the library cannot be built."""
+    process, by the scan, by region decodes, and by region decodes on more
+    than one thread; they survive ``bc_close``.  Raises OSError when the
+    library cannot be built."""
     lib = _load()
     out = (C.c_int64 * len(COUNTERS))()
     lib.bc_counters(out, len(COUNTERS))

@@ -14,24 +14,47 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the port's BAM core counts the bytes it inflates and has no BC_TIMING
-# switch: the edit that turns the original into the port, as (text of the
-# original, its replacement) pairs; each text occurs once in the original
+# the port's BAM core counts the bytes it inflates, keeps the handle's
+# thread count for its region decodes, inflates a scan window through the
+# helper its region decodes share and has no BC_TIMING switch: the edit
+# that turns the original into the port, as (text of the original, its
+# replacement) pairs; each text occurs once in the original
 _BAMCORE_CPP_EDIT = (
     ("// Exposed as a C ABI for ctypes; no Python headers required.\n",
      """// Exposed as a C ABI for ctypes; no Python headers required.
 //
-// Two process-wide counters of payload bytes inflated, read by
-// bc_counters(): by the scan (scan_inflated_bytes) and by region decodes
-// (decode_inflated_bytes).  They live outside any handle, so they outlast
-// bc_close, and count always (one relaxed add per window or block).
+// Three process-wide counters of payload bytes inflated, read by
+// bc_counters(): by the scan (scan_inflated_bytes), by region decodes
+// (decode_inflated_bytes), and the part of the latter inflated on more
+// than one thread (decode_pooled_bytes).  They live outside any handle,
+// so they outlast bc_close, and count always (one relaxed add a window).
 """),
     ("#include <algorithm>\n", "#include <algorithm>\n#include <atomic>\n"),
     ("\nconstexpr uint32_t kRefConsuming", """
 std::atomic<int64_t> g_scan_inflated{0};
 std::atomic<int64_t> g_decode_inflated{0};
+std::atomic<int64_t> g_decode_pooled{0};
 
 constexpr uint32_t kRefConsuming"""),
+    ("  bool from_cache = false;   // record table loaded from a scan cache\n",
+     "  bool from_cache = false;   // record table loaded from a scan cache\n"
+     "  int nthreads = 1;          // threads a region decode inflates on\n"),
+    ("""BamCore* bc_open(const char* path, int nthreads) {
+  auto* bc = new BamCore();
+  bc->path = path;
+""", """BamCore* bc_open(const char* path, int nthreads) {
+  auto* bc = new BamCore();
+  bc->path = path;
+  bc->nthreads = nthreads < 1 ? 1 : (nthreads > 64 ? 64 : nthreads);
+"""),
+    ("""                        int nthreads) {
+  auto* bc = new BamCore();
+  bc->path = path;
+""", """                        int nthreads) {
+  auto* bc = new BamCore();
+  bc->path = path;
+  bc->nthreads = nthreads < 1 ? 1 : (nthreads > 64 ? 64 : nthreads);
+"""),
     ("""  Scanner sc(bc, nthreads);
   const bool timing = getenv("BC_TIMING") != nullptr;
   double t_win = 0, t_p1 = 0, t_p2 = 0, t_p3 = 0, t_drop = 0;
@@ -41,19 +64,71 @@ constexpr uint32_t kRefConsuming"""),
     return ts.tv_sec + ts.tv_nsec * 1e-9;
   };
 """, "  Scanner sc(bc, nthreads);\n"),
-    ("""      if (!errs[t].empty()) { bc->error = errs[t]; return false; }
+    ("bool scan_file(BamCore* bc, int nthreads) {\n",
+     """// Inflate members[i], described by infos[i], to out + dst[i] for every
+// member of infos, on nt threads: member i on thread i mod nt (nt 1: on
+// the calling thread).  On failure *err is the error of the first thread
+// that had one.
+bool inflate_members(const std::vector<BlockInfo>& infos,
+                     const std::vector<std::vector<uint8_t>>& members,
+                     const int64_t* dst, uint8_t* out, int nt,
+                     std::string* err) {
+  const size_t k = infos.size();
+  if (nt <= 1) {
+    for (size_t i = 0; i < k; i++) {
+      if (!inflate_block(members[i].data(), infos[i], out + dst[i], err)) {
+        return false;
+      }
     }
     return true;
-  };
+  }
+  std::string errs[64];
+  std::vector<std::thread> threads;
+  for (int t = 0; t < nt; t++) {
+    threads.emplace_back([&, t]() {
+      for (size_t i = t; i < k; i += nt) {
+        if (!inflate_block(members[i].data(), infos[i], out + dst[i],
+                           &errs[t])) {
+          return;
+        }
+      }
+    });
+  }
+  for (auto& th : threads) th.join();
+  for (int t = 0; t < nt; t++) {
+    if (!errs[t].empty()) { *err = errs[t]; return false; }
+  }
+  return true;
+}
 
-  while (true) {
-""", """      if (!errs[t].empty()) { bc->error = errs[t]; return false; }
+bool scan_file(BamCore* bc, int nthreads) {
+"""),
+    ("""    // parallel inflate
+    std::string errs[64];
+    int nt = sc.nthreads > 64 ? 64 : sc.nthreads;
+    std::vector<std::thread> threads;
+    for (int t = 0; t < nt; t++) {
+      threads.emplace_back([&, t]() {
+        for (size_t i = t; i < infos.size(); i += nt) {
+          if (!inflate_block(members[i].data(), infos[i],
+                             sc.buf.data() + dst_off[i], &errs[t])) {
+            return;
+          }
+        }
+      });
+    }
+    for (auto& th : threads) th.join();
+    for (int t = 0; t < nt; t++) {
+      if (!errs[t].empty()) { bc->error = errs[t]; return false; }
+    }
+    return true;
+""", """    // parallel inflate
+    if (!inflate_members(infos, members, dst_off.data(), sc.buf.data(),
+                         sc.nthreads, &bc->error)) {
+      return false;
     }
     g_scan_inflated.fetch_add(total, std::memory_order_relaxed);
     return true;
-  };
-
-  while (true) {
 """),
     ("    double t0 = timing ? now() : 0;\n", ""),
     ("    if (timing) t_win += now() - t0;\n", ""),
@@ -72,20 +147,16 @@ constexpr uint32_t kRefConsuming"""),
 """, """    sc.drop_consumed(parse_gpos);
   }
 """),
-    ("    if (!inflate_block(member.data(), bi, buf.data() + old, "
-     "&bc->error)) return false;\n",
-     "    if (!inflate_block(member.data(), bi, buf.data() + old, "
-     "&bc->error)) return false;\n"
-     "    g_decode_inflated.fetch_add(bi.usize, std::memory_order_relaxed);\n"),
     ("void bc_close(BamCore* bc) { delete bc; }\n",
      """// The process-wide counters, in this order: scan_inflated_bytes,
-// decode_inflated_bytes.  Writes the first min(n, 2) into out and returns
-// how many there are.
+// decode_inflated_bytes, decode_pooled_bytes.  Writes the first min(n, 3)
+// into out and returns how many there are.
 int bc_counters(int64_t* out, int n) {
-  const int64_t v[2] = {g_scan_inflated.load(std::memory_order_relaxed),
-                        g_decode_inflated.load(std::memory_order_relaxed)};
-  for (int i = 0; i < n && i < 2; i++) out[i] = v[i];
-  return 2;
+  const int64_t v[3] = {g_scan_inflated.load(std::memory_order_relaxed),
+                        g_decode_inflated.load(std::memory_order_relaxed),
+                        g_decode_pooled.load(std::memory_order_relaxed)};
+  for (int i = 0; i < n && i < 3; i++) out[i] = v[i];
+  return 3;
 }
 
 void bc_close(BamCore* bc) { delete bc; }
@@ -111,6 +182,12 @@ void bc_close(BamCore* bc) { delete bc; }
 
 # relative path -> the exact edit that turns the original into the port
 EDITS = {"native/bamcore.cpp": _BAMCORE_CPP_EDIT}
+
+# relative path -> sections that are the port's own, each from a line that
+# starts with its first text up to the line that starts with its second:
+# the port inflates a region's members on the handle's threads
+OWN_SECTIONS = {"native/bamcore.cpp": (
+    ("// ---- region decode", "// ---- SA-tag chimera assembly"),)}
 
 # relative path -> (functions, classes or module-level names that may
 # differ, substrings or patterns of other lines that may differ)
@@ -217,11 +294,22 @@ def _apply_edit(rel: str, src: str) -> str:
     return src
 
 
+def _cut_own(rel: str, pkg: str, src: str) -> str:
+    """``src`` with each section of OWN_SECTIONS[rel] left as its first
+    line."""
+    for first, last in OWN_SECTIONS.get(rel, ()):
+        a, b = src.split("\n" + first), src.split("\n" + last)
+        assert len(a) == 2 and len(b) == 2, f"{pkg}/{rel}: {first!r}"
+        src = a[0] + "\n" + first + "\n" + last + b[1]
+    return src
+
+
 @pytest.mark.parametrize("rel", sorted(COPIES))
 def test_copied_module_drift_guard(rel):
     src_j, src_t = _read("coral_tpu", rel), _read("coral_tpu_torch", rel)
     if COPIES[rel] is None:
-        assert _apply_edit(rel, src_j) == src_t
+        assert _cut_own(rel, "coral_tpu", _apply_edit(rel, src_j)) == \
+            _cut_own(rel, "coral_tpu_torch", src_t)
         return
     functions, substrings = COPIES[rel]
     lines_j, lines_t = src_j.splitlines(), src_t.splitlines()

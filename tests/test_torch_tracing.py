@@ -265,3 +265,108 @@ def test_counters_survive_close(sample):
     del bam
     gc.collect()
     assert tracing.counters() == c1
+
+
+# -- region decodes on the handle's threads ------------------------------
+
+MEMBER = 2000   # payload bytes a member: the sample in about 1,800 members
+
+
+@pytest.fixture(scope="module")
+def small_members(sample, tmp_path_factory):
+    """The sample's BAM rewritten as members of MEMBER payload bytes, so a
+    decode over its contig reads several windows at 8 threads."""
+    from coral_tpu_torch.io.bgzf import BGZF_EOF, compress_block
+
+    payload = gzip.decompress(open(sample[0], "rb").read())
+    p = str(tmp_path_factory.mktemp("members") / "small.bam")
+    with open(p, "wb") as fp:
+        for i in range(0, len(payload), MEMBER):
+            fp.write(compress_block(payload[i:i + MEMBER], level=1))
+        fp.write(BGZF_EOF)
+    return p
+
+
+def _decode_with(path, nthreads):
+    """A native BamFile whose region decodes run on a handle opened with
+    ``nthreads`` (the table stays a view of the first handle, kept)."""
+    from coral_tpu_torch.native import bamcore
+
+    bam = BamFile(path)
+    assert bam.backend == "native"
+    bam._table_handle = bam._native
+    bam._native = bamcore.NativeBam(path, nthreads=nthreads)
+    return bam
+
+
+def _extent(py, chrom, s, e):
+    """First and last member that hold the records over [s, e)."""
+    lo, hi = py.overlap_range(chrom, s, e)
+    end = int(py._upos[hi - 1]) + 4 + struct.unpack_from(
+        "<i", py._payload, int(py._upos[hi - 1]))[0]
+    return int(py._upos[lo]) // MEMBER, (end - 1) // MEMBER
+
+
+@pytest.mark.parametrize("query", ["coverage_sum", "coverage_profile",
+                                   "del_gap_alignments"])
+def test_pooled_decode_inflates_the_same_members(small_members, query):
+    """At 1 and 8 threads a decode inflates exactly the members from the
+    one that holds its first record's first byte to the one that holds
+    its last record's last byte; at 8 threads every window of more than
+    one member (128 members a window) on the pool."""
+    py = BamFile(small_members, backend="python")
+    isizes = _bgzf_isizes(small_members)
+    chrom, length = py.references[0]
+    n = py.n_records
+    regions = [(0, length),
+               (int(py.pos[n // 3]), int(py.pos[2 * n // 3]))]
+    expected = []
+    for s, e in regions:
+        first, last = _extent(py, chrom, s, e)
+        assert last - first + 1 > 2 * 16 * 8      # several windows at 8
+        assert (py.overlap_range(chrom, s, e)[1] == n) == (e == length)
+        windows = [isizes[i:min(i + 128, last + 1)]
+                   for i in range(first, last + 1, 128)]
+        expected.append((sum(isizes[first:last + 1]),
+                         sum(sum(w) for w in windows if len(w) > 1)))
+    for nthreads in (1, 8):
+        bam = _decode_with(small_members, nthreads)
+        for (s, e), (want, want_pooled) in zip(regions, expected):
+            args = (chrom, s, e) + ((30,) if query == "del_gap_alignments"
+                                    else ())
+            c0 = tracing.counters()
+            getattr(bam, query)(*args)
+            c1 = tracing.counters()
+            decoded = c1["decode_inflated_bytes"] - c0["decode_inflated_bytes"]
+            pooled = c1["decode_pooled_bytes"] - c0["decode_pooled_bytes"]
+            assert decoded == want
+            assert pooled == (want_pooled if nthreads > 1 else 0)
+        bam.close()
+
+
+@pytest.mark.parametrize("members", ["one", "fewer_than_threads"])
+def test_short_decode_pools_only_what_it_can_split(small_members, members):
+    """A range of one member is inflated on the calling thread; a range
+    of fewer members than the handle has threads goes to the pool whole,
+    on one thread a member."""
+    py = BamFile(small_members, backend="python")
+    chrom, _ = py.references[0]
+    isizes = _bgzf_isizes(small_members)
+    s = int(py.pos[len(py.pos) // 2])
+
+    def count(e):
+        first, last = _extent(py, chrom, s, e)
+        return last - first + 1
+
+    want = (lambda k: k == 1) if members == "one" else (lambda k: 1 < k < 8)
+    e = next(s + w for w in range(1, 100_000) if want(count(s + w)))
+    first, last = _extent(py, chrom, s, e)
+    bam = _decode_with(small_members, 8)
+    c0 = tracing.counters()
+    assert bam.coverage_sum(chrom, s, e) == py.coverage_sum(chrom, s, e)
+    c1 = tracing.counters()
+    decoded = c1["decode_inflated_bytes"] - c0["decode_inflated_bytes"]
+    assert decoded == sum(isizes[first:last + 1])
+    assert c1["decode_pooled_bytes"] - c0["decode_pooled_bytes"] == \
+        (0 if members == "one" else decoded)
+    bam.close()
