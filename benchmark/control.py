@@ -52,13 +52,13 @@ def readings(c, seeds, overrides=None, out=sys.stdout, program=True):
                                           args.device, with_cycles)
                 run.sync(args.device)
                 row["sample_s"] = time.perf_counter() - t1
-                sound = compare.new_state(with_cycles)
+                sound = compare.new_state(with_cycles, ref.simple)
                 compare.judge_sample(gather(prefix, cn, with_cycles), ref,
                                      with_cycles, sound)
                 row.update(program=sound,
                            program_ok=compare.verdict(sound, lim))
             t2 = time.perf_counter()
-            ctl = compare.new_state(with_cycles)
+            ctl = compare.new_state(with_cycles, ref.simple)
             compare.judge_sample(compare.control_outputs(ref, with_cycles),
                                  ref, with_cycles, ctl)
             row.update(control=ctl, control_ok=compare.verdict(ctl, lim),

@@ -1,7 +1,20 @@
 """Everything a cell is made of, found by the names ``BENCHMARK.json`` gives:
 ``configs/<config>.json``, ``traffic/<traffic>.json`` and, for each
 per-layer metric, the reader ``metrics/<name>.py``.  Adding a cell, a mix,
-a configuration or a metric adds files and entries; no file here changes."""
+a configuration or a metric adds files and entries; no file here changes.
+
+A mix needs no edit of the generator, the reference or the check where it
+is an amplicon on one chromosome of the shapes ``traffic/generator.py``
+reads: a one-segment circle (``amp``), or ``segments`` at their own extra
+coverage with ``split`` junctions of any orientation, ``deletion``
+junctions, spanning reads and the circles it plants (``circles``), so
+long as those circles, with the chromosome's own walk where they leave a
+path constraint unmet or under ``p_total_weight`` of the CN-weighted
+length covered, are the decomposition (``reference/model.py``).  Where
+the configuration decomposes cycles, any sample but a one-segment circle
+is judged by ``coverage_rel_gap`` and ``cap_excess`` in place of
+``copy_rel_gap``, so that configuration's ``check`` gives them limits.
+Another chromosome, a second amplicon, or walks beyond those need code."""
 from __future__ import annotations
 
 import importlib.util

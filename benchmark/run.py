@@ -14,7 +14,10 @@ configuration skips cycles, then ``rec.bam.close()``), starting samples
 until ``--seconds`` have passed and letting the last one finish.
 
 With ``--trace 0`` the last line of standard output holds the cell's
-end-to-end metrics; with ``--trace 1`` its per-layer metrics, read from
+end-to-end metrics: the process's CPU seconds (every thread, user and
+system) over the window per sample, the window's peak resident set and
+the set-up time; with ``--trace 1`` its per-layer metrics, among them the
+window's wall-clock rate of BAM records, read from
 spans the benchmark installs around the program's functions, the program's
 own counters and the profiler's device trace.  After the window every
 sample's outputs are compared with the NumPy reference
@@ -171,6 +174,7 @@ class TraceReading:
     def __init__(self, tracer, t0, t1, samples, device):
         self.tracer, self.t0, self.t1 = tracer, t0, t1
         self.samples = samples
+        self.records = 0
         self.device = device
         self.counts = tracer.counts if tracer else {}
         self.marks = {}
@@ -245,11 +249,13 @@ def run_cell(c, seed, seconds, trace, overrides=None, log=sys.stderr):
         out_dir = os.path.join(work, "out")
         os.makedirs(out_dir)
         t0 = time.perf_counter()
+        c0 = time.process_time()
         try:
             with (torch.profiler.record_function("span:window") if trace
                   else contextlib.nullcontext()):
                 while True:
                     ts = time.perf_counter()
+                    cs = time.process_time()
                     prefix = os.path.join(out_dir, f"s{len(cns_by_sample)}")
                     try:
                         cns_by_sample.append(reconstruct_once(
@@ -264,11 +270,12 @@ def run_cell(c, seed, seconds, trace, overrides=None, log=sys.stderr):
                     gc.collect()
                     te = time.perf_counter()
                     print(f"sample {len(cns_by_sample)}: at {ts - t0:.3f} s, "
-                          f"{te - ts:.4f} s, of which gc {te - tg:.4f} s",
-                          file=log)
+                          f"{te - ts:.4f} s, of which gc {te - tg:.4f} s, "
+                          f"cpu {time.process_time() - cs:.4f} s", file=log)
                     if te - t0 >= seconds:
                         break
             t1 = time.perf_counter()
+            c1 = time.process_time()
             peak_rss = rss.stop()
             print(f"peak_rss: {peak_rss} B, sampled every {rss.period} s",
                   file=log)
@@ -284,7 +291,9 @@ def run_cell(c, seed, seconds, trace, overrides=None, log=sys.stderr):
             print(f"modules of JAX or the JAX package loaded: {bad}", file=log)
             return None
         samples = len(cns_by_sample)
-        window = t1 - t0
+        print(f"window: {samples} samples in {t1 - t0:.4f} s, "
+              f"{sample.n_records * samples / (t1 - t0):.4f} records/s, "
+              f"cpu {c1 - c0:.4f} s", file=log)
 
         metrics = {}
         if trace:
@@ -298,13 +307,14 @@ def run_cell(c, seed, seconds, trace, overrides=None, log=sys.stderr):
                 os.remove(path)
             reading.tracer, reading.t0, reading.t1 = tracer, t0, t1
             reading.samples, reading.device = samples, dev
+            reading.records = sample.n_records * samples
             reading.counts = tracer.counts
             for m in c.per_layer:
                 v = readers[m["name"]].read(reading)
                 if v is not None:
                     metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         else:
-            values = {"records_per_s": sample.n_records * samples / window,
+            values = {"cpu_s_per_sample": (c1 - c0) / samples,
                       "peak_rss_gib": peak_rss / 2 ** 30,
                       "setup_s": setup_s}
             for m in c.end_to_end:
@@ -317,11 +327,11 @@ def run_cell(c, seed, seconds, trace, overrides=None, log=sys.stderr):
         ref = compare.Reference(c.mix, seed, sample.cns, sample.seeds,
                                 c.config["constants"])
         lim = dict(c.config["check"])
-        state = compare.new_state(with_cycles)
+        state = compare.new_state(with_cycles, ref.simple)
         for k, cn in enumerate(cns_by_sample):
             if cn is None:
                 continue
-            one = compare.new_state(with_cycles)
+            one = compare.new_state(with_cycles, ref.simple)
             compare.judge_sample(
                 gather(os.path.join(out_dir, f"s{k}"), cn, with_cycles),
                 ref, with_cycles, one)

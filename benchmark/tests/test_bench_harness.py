@@ -36,7 +36,7 @@ def test_new_config_mix_and_metric_are_found_without_edits(tmp_path):
                               "traffic": "gbm39cut", "chips": 1, "why": "x"})
     spec["per_layer"].append({"name": "new_metric_s", "unit": "s",
                               "better": "lower", "source": "program_span",
-                              "layer": "x", "moves": "records_per_s",
+                              "layer": "x", "moves": "cpu_s_per_sample",
                               "workloads": ["new.gbm39cut"]})
     json.dump(spec, open(root / "BENCHMARK.json", "w"))
     c = registry.cell(registry.load_spec(str(root)), "new.gbm39cut",
@@ -55,7 +55,7 @@ def test_every_cell_and_metric_of_the_benchmark_resolves():
     for w in spec["workloads"]:
         c = registry.cell(spec, w["name"])
         assert {m["name"] for m in c.end_to_end} == \
-            {"records_per_s", "peak_rss_gib", "setup_s"}
+            {"cpu_s_per_sample", "peak_rss_gib", "setup_s"}
         assert c.per_layer
         for m in c.per_layer:
             assert callable(registry.metric_reader(m["name"]).read)
@@ -121,7 +121,8 @@ def test_result_line_keys_and_check_last(tmp_path, monkeypatch):
     assert list(res) == ["correct", "attempted", "failed", "metrics",
                          "device", "check"]
     assert res["correct"] is True and res["failed"] == 0
-    assert set(res["metrics"]) == {"records_per_s", "peak_rss_gib", "setup_s"}
+    assert set(res["metrics"]) == {"cpu_s_per_sample", "peak_rss_gib",
+                                   "setup_s"}
     assert all(v["value"] > 0 for v in res["metrics"].values())
     traced = run.run_cell(c, 2 ** 31 + 5, 0.5, True, CPU, io.StringIO())
     names = {m["name"] for m in c.per_layer}
