@@ -33,6 +33,7 @@ import numpy as np
 from scipy.optimize import Bounds, LinearConstraint, milp
 
 from ..config import CycleConfig
+from ..tracing import count, span
 from .candidates import Candidate, enumerate_candidates
 from .path_constraints import longest_path_dict
 
@@ -287,6 +288,9 @@ def _solve_selection_milp(
     lower = np.zeros(nvar)
     upper = np.concatenate([
         np.ones(m), np.full(m, g.max_cn), np.ones(nR)])
+    count("milp_solves")
+    count("milp_vars", nvar)
+    count("milp_rows", sum(c.A.shape[0] for c in cons))
     options = {"time_limit": time_limit, "presolve": True}
     if threads and threads > 0:
         # --cycle_decomp_threads (reference: GRB.Param.Threads,
@@ -297,7 +301,7 @@ def _solve_selection_milp(
         logger.info("HiGHS solver threads limited to %d", threads)
     import warnings
 
-    with warnings.catch_warnings():
+    with warnings.catch_warnings(), span("cycles.solve"):
         warnings.filterwarnings(
             "ignore", message="Unrecognized options detected",
             category=RuntimeWarning)
@@ -489,11 +493,14 @@ def cycle_decomposition(rec, cfg: CycleConfig, model_prefix: str = "") -> None:
             # the native enumerator explores ~100x the states per second;
             # spend that on a deeper exact search
             state_budget *= 20
-        candidates = enumerate_candidates(
-            g,
-            max_multiplicity=cfg.max_edge_multiplicity,
-            max_states=state_budget,
-        )
+        with span("cycles.enumerate"):
+            candidates = enumerate_candidates(
+                g,
+                max_multiplicity=cfg.max_edge_multiplicity,
+                max_states=state_budget,
+            )
+        count("walk_candidates", len(candidates))
+        count("path_constraints_max", len(pc_list))
 
         def coverage_met() -> bool:
             weights = rec.cycle_weights.get(amplicon_idx, [[], []])
@@ -610,11 +617,12 @@ def cycle_decomposition(rec, cfg: CycleConfig, model_prefix: str = "") -> None:
                     "%s) — pool truncated=%s coverage_met=%s",
                     amplicon_idx + 1, budget, cap_mode, candidates.truncated,
                     coverage_met())
-                wide = enumerate_candidates(
-                    g, max_multiplicity=cfg.max_edge_multiplicity,
-                    conc_cap=(cfg.max_edge_multiplicity
-                              if cap_mode == "wide" else None),
-                    max_states=budget)
+                with span("cycles.enumerate"):
+                    wide = enumerate_candidates(
+                        g, max_multiplicity=cfg.max_edge_multiplicity,
+                        conc_cap=(cfg.max_edge_multiplicity
+                                  if cap_mode == "wide" else None),
+                        max_states=budget)
                 attempt = {"caps": cap_mode, "budget": budget,
                            "pool": len(wide),
                            "truncated": wide.truncated, "solver": None}

@@ -24,7 +24,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..tracing import span
+from ..tracing import count, span
 from .bgzf import iter_blocks
 
 # CIGAR op codes
@@ -471,6 +471,7 @@ class BamFile:
                 out.append((self.name(i), int(self.mapq[i]), gaps,
                             int(bf[k - 1]), int(bl[k - 1]),
                             int(self.nm[i]), int(self.qlen[i])))
+            count("del_gap_alignments", len(out))
             return out
         out = []
         for rec in self.decode_region(chrom, start, stop):
@@ -486,6 +487,7 @@ class BamFile:
                 out.append((rec.name, rec.mapq, gaps,
                             blocks[0][0], blocks[-1][1],
                             int(self.nm[rec.index]), int(self.qlen[rec.index])))
+        count("del_gap_alignments", len(out))
         return out
 
     def close(self) -> None:

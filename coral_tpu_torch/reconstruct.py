@@ -1455,10 +1455,11 @@ def reconstruct_cycles(rec: Reconstruction, output_prefix: str,
         with span("path_constraints"):
             rec.compute_path_constraints()
         cycle_decomposition(rec, rec.cfg.cycles, model_prefix=output_prefix)
-        output_cycles(rec, output_prefix,
-                      output_all_paths=output_all_path_constraints,
-                      eulerian_seed=rec.cfg.cycles.eulerian_seed,
-                      max_trials=rec.cfg.cycles.eulerian_max_trials)
+        with span("cycles.output"):
+            output_cycles(rec, output_prefix,
+                          output_all_paths=output_all_path_constraints,
+                          eulerian_seed=rec.cfg.cycles.eulerian_seed,
+                          max_trials=rec.cfg.cycles.eulerian_max_trials)
 
 
 def reconstruct_graphs(
@@ -1492,7 +1493,8 @@ def reconstruct_graphs(
     with span("interval_search"):
         rec.hash_to_segments()
         rec.find_amplicon_intervals()
-        rec.find_smalldel_breakpoints()
+        with span("smalldel"):
+            rec.find_smalldel_breakpoints()
     with span("breakpoints", sync=True):
         rec.find_breakpoints(mesh=mesh)
     with span("graph_cn", sync=True):

@@ -16,7 +16,14 @@ sequence number, read with :func:`last_seq` and :func:`spans_since`.
 
 Counters: :func:`counters` snapshots the native BAM core's process-wide
 counts of BGZF payload bytes inflated (``scan_inflated_bytes``,
-``decode_inflated_bytes``); they count whether tracing is on or not.
+``decode_inflated_bytes``) and the program's own counts, added under the
+lock by :func:`count`; all count whether tracing is on or not.  The
+program's own (``COUNTERS``): the rows ``BamFile.del_gap_alignments``
+returned (``del_gap_alignments``); of each amplicon the decomposition
+takes, its first pool of walks (``walk_candidates``) and its maximal path
+constraints (``path_constraints_max``); the selection MILPs solved
+(``milp_solves``) with their variables (``milp_vars``) and constraint rows
+(``milp_rows``).
 """
 from __future__ import annotations
 
@@ -149,9 +156,23 @@ def span(name: str, sync: bool = False):
     return _Span(name, sync)
 
 
+COUNTERS = ("del_gap_alignments", "walk_candidates", "path_constraints_max",
+            "milp_solves", "milp_vars", "milp_rows")
+_counts = dict.fromkeys(COUNTERS, 0)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the program's counter ``name``, tracing on or off."""
+    with _lock:
+        _counts[name] += n
+
+
 def counters() -> dict:
-    """The native BAM core's counters now, as ints; raises OSError where
-    the library cannot be built."""
+    """The native BAM core's counters and the program's own now, as ints;
+    raises OSError where the library cannot be built."""
     from .native import bamcore
 
-    return bamcore.counters()
+    out = bamcore.counters()
+    with _lock:
+        out.update(_counts)
+    return out

@@ -199,7 +199,7 @@ COPIES = {
     "tracing.py": (("setup_file_logging", "SpanRecord", "MAX_SPANS", "SPANS",
                     "_enabled", "_seq", "_lock", "enable", "disable", "last_seq",
                     "spans_since", "_record", "_NoSpan", "_NO_SPAN", "_Span",
-                    "span", "counters"), ()),
+                    "span", "COUNTERS", "_counts", "count", "counters"), ()),
     "sim.py": ((), ()),
     "io/__init__.py": ((), ()),
     "io/bgzf.py": ((), ()),
@@ -232,8 +232,12 @@ COPIES = {
     "cycles/eulerian.py": ((), ()),
     "cycles/path_constraints.py": ((), ()),
     "cycles/output.py": ((), ("our candidate pool can",)),
-    "cycles/decomposition.py": ((), ("keeps the reference's model-size gate",
-                                     "Per-amplicon decomposition")),
+    # the walk enumerations and the MILP solves run under spans and count
+    # the walks, path constraints and MILP sizes
+    "cycles/decomposition.py": (("cycle_decomposition",
+                                 "_solve_selection_milp"),
+                                ("keeps the reference's model-size gate",
+                                 "Per-amplicon decomposition")),
     "cycles/colgen.py": ((), ("cycle_decomposition.py:179-332",
                               "an admissible bound otherwise")),
     "cycles/refmodel.py": ((), ()),

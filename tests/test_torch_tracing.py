@@ -5,7 +5,8 @@ Off, a span is a shared no-op that reads no clock and calls nothing of
 records the six stage spans in pipeline order with the work-site spans
 inside them, and writes the same files.  The native BAM core counts the
 payload bytes that the scan and the region decodes inflate, as read back
-from the BGZF file here."""
+from the BGZF file here; the program counts the rows of its deletion
+search and the walks and MILP sizes of its decomposition, tracing off."""
 import dataclasses
 import gzip
 import os
@@ -24,7 +25,8 @@ from coral_tpu_torch.sim import simulate_ecdna
 
 STAGES = ["scan_collect", "interval_search", "breakpoints", "graph_cn",
           "cycles", "path_constraints"]
-WORK_SITES = ("bam.scan", "decode.", "chimera.parse_sa", "pair_scoring")
+WORK_SITES = ("bam.scan", "decode.", "chimera.parse_sa", "pair_scoring",
+              "smalldel", "cycles.")
 CFG = DEFAULT_CONFIG.replace(engine=dataclasses.replace(
     DEFAULT_CONFIG.engine, engine="torch"))
 
@@ -136,6 +138,11 @@ def test_stage_spans_once_a_sample_in_pipeline_order(runs):
     ("pair_scoring", "breakpoints"),
     ("decode.coverage_sum", "scan_collect"),
     ("decode.coverage_sum", "graph_cn"),
+    ("smalldel", "interval_search"),
+    ("decode.del_gaps", "smalldel"),
+    ("cycles.enumerate", "cycles"),
+    ("cycles.solve", "cycles"),
+    ("cycles.output", "cycles"),
 ])
 def test_work_site_spans_nest_in_their_stage(runs, site, stage):
     spans = runs["on"][2]
@@ -151,7 +158,8 @@ def test_every_work_site_span_sits_in_a_stage_span(runs):
     sites = [r for r in spans if r.name.startswith(WORK_SITES)]
     assert {r.name for r in sites} >= {
         "bam.scan", "decode.coverage_sum", "decode.del_gaps",
-        "chimera.parse_sa", "pair_scoring"}
+        "chimera.parse_sa", "pair_scoring", "smalldel", "cycles.enumerate",
+        "cycles.solve", "cycles.output"}
     assert {r.name for r in spans} <= set(STAGES) | {r.name for r in sites}
     for r in sites:
         assert any(s.t0 <= r.t0 and r.t1 <= s.t1 for s in stages), r
@@ -265,6 +273,72 @@ def test_counters_survive_close(sample):
     del bam
     gc.collect()
     assert tracing.counters() == c1
+
+
+# -- the program's own counters -------------------------------------------
+
+@pytest.mark.parametrize("backend", ["native", "python"])
+def test_del_gap_alignments_counts_the_rows_it_returns(tmp_path, backend):
+    """One record of five has a deletion over ``min_del_len``; the others
+    have none, a short one, or one below the MAPQ floor."""
+    from coral_tpu_torch.io.bamwrite import BamRecord, write_bam
+
+    path = str(tmp_path / "del.bam")
+    write_bam(path, [("chr7", 200_000)], [
+        BamRecord("plain", 0, "chr7", 10_000, 60, "2000M"),
+        BamRecord("short", 0, "chr7", 10_500, 60, "1000M40D1000M"),
+        BamRecord("large", 0, "chr7", 11_000, 60, "1000M905D1000M"),
+        BamRecord("lowq", 0, "chr7", 11_500, 5, "1000M905D1000M"),
+        BamRecord("after", 0, "chr7", 30_000, 60, "1500M"),
+    ])
+    bam = BamFile(path, backend=backend)
+    assert bam.backend == backend
+    c0 = tracing.counters()["del_gap_alignments"]
+    rows = bam.del_gap_alignments("chr7", 0, 200_000, 600, 20)
+    c1 = tracing.counters()["del_gap_alignments"]
+    assert [r[0] for r in rows] == ["large"]
+    assert rows[0][2] == [(12_905, 12_000)]
+    assert c1 - c0 == len(rows) == 1
+    assert bam.del_gap_alignments("chr7", 0, 200_000, 1000, 20) == []
+    assert tracing.counters()["del_gap_alignments"] == c1
+    bam.close()
+
+
+def test_decomposition_counters_count_with_tracing_off(sample, tmp_path,
+                                                       monkeypatch):
+    """Over one reconstruct, tracing off: the walks and path constraints
+    its model files record and the variables and rows of every MILP
+    handed to the solver."""
+    import json
+
+    from coral_tpu_torch.cycles import decomposition
+
+    solves = []
+    orig = decomposition.milp
+
+    def recorded(*a, **k):
+        solves.append((len(k["c"]),
+                       sum(c.A.shape[0] for c in k["constraints"])))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(decomposition, "milp", recorded)
+    c0 = tracing.counters()
+    seq = tracing.last_seq()
+    _reconstruct(sample, str(tmp_path / "s"))
+    c1 = tracing.counters()
+    assert tracing.spans_since(seq) == []
+    delta = {k: c1[k] - c0[k] for k in tracing.COUNTERS}
+    models = [json.load(open(tmp_path / f))
+              for f in sorted(os.listdir(tmp_path))
+              if f.endswith("_model.json")]
+    assert models and solves
+    assert delta["walk_candidates"] == sum(m["candidates"] for m in models)
+    assert delta["path_constraints_max"] == \
+        sum(m["path_constraints"] for m in models)
+    assert delta["milp_solves"] == len(solves)
+    assert delta["milp_vars"] == sum(n for n, _ in solves) > 0
+    assert delta["milp_rows"] == sum(r for _, r in solves) > 0
+    assert delta["del_gap_alignments"] >= 0
 
 
 # -- region decodes on the handle's threads ------------------------------
