@@ -17,6 +17,9 @@
 // (decode_inflated_bytes), and the part of the latter inflated on more
 // than one thread (decode_pooled_bytes).  They live outside any handle,
 // so they outlast bc_close, and count always (one relaxed add a window).
+// Two more count the records of region decodes: those answered from the
+// scan's columns (decode_column_records, one relaxed add a call) and those
+// walked from inflated bytes (decode_walked_records, one a run walked).
 
 #include <cstdint>
 #include <cstdio>
@@ -39,6 +42,8 @@ namespace {
 std::atomic<int64_t> g_scan_inflated{0};
 std::atomic<int64_t> g_decode_inflated{0};
 std::atomic<int64_t> g_decode_pooled{0};
+std::atomic<int64_t> g_decode_column{0};
+std::atomic<int64_t> g_decode_walked{0};
 
 constexpr uint32_t kRefConsuming = (1u << 0) | (1u << 2) | (1u << 3) | (1u << 7) | (1u << 8);
 constexpr uint32_t kAligned = (1u << 0) | (1u << 7) | (1u << 8);
@@ -131,6 +136,8 @@ struct BamCore {
   dvec<uint8_t> sa_blob;
   dvec<int64_t> sa_off;
   dvec<int64_t> sa_len;
+  dvec<int64_t> aligned;    // bases in the record's M/=/X ops
+  dvec<int64_t> max_gap;    // largest gap between consecutive such ops
 
   // del-gap query scratch
   std::vector<GapRow> gaps;
@@ -364,9 +371,21 @@ bool parse_record_direct(const uint8_t* base, int64_t off, BamCore* bc,
   const uint8_t* name_p = r + 32;
   const uint8_t* cig_p = name_p + l_read_name;
   int64_t ref_len = 0;
+  // the aligned-base count and the largest gap between consecutive
+  // aligned ops, the gap measured as bc_del_gaps measures it
+  int64_t aligned = 0, max_gap = 0, prev_blk_end = -1;
   for (int ci = 0; ci < n_cigar; ci++) {
     uint32_t c;
     memcpy(&c, cig_p + 4 * ci, 4);
+    if ((1u << (c & 0xF)) & kAligned) {
+      const int64_t bstart = pos + ref_len;
+      if (prev_blk_end >= 0) {
+        const int64_t gap = bstart - prev_blk_end;
+        max_gap = std::max(max_gap, gap < 0 ? -gap : gap);
+      }
+      prev_blk_end = bstart + (c >> 4);
+      aligned += c >> 4;
+    }
     if ((1u << (c & 0xF)) & kRefConsuming) ref_len += c >> 4;
   }
   const uint8_t* aux_p = cig_p + 4 * n_cigar + (l_seq + 1) / 2 + l_seq;
@@ -385,6 +404,8 @@ bool parse_record_direct(const uint8_t* base, int64_t off, BamCore* bc,
   bc->mapq[gidx] = mapq;
   bc->qlen[gidx] = l_seq;
   bc->nm[gidx] = nmv;
+  bc->aligned[gidx] = aligned;
+  bc->max_gap[gidx] = max_gap;
   bc->name_off[gidx + 1] = l_read_name - 1;   // length; prefix-summed later
   bc->sa_len[gidx] = sa_n;
   *sa_src = sa ? sa - base : -1;
@@ -561,6 +582,8 @@ bool scan_file(BamCore* bc, int nthreads) {
       ensure_size(bc->name_off, new_n + 1);
       ensure_size(bc->sa_len, new_n);
       ensure_size(bc->sa_off, new_n);
+      ensure_size(bc->aligned, new_n);
+      ensure_size(bc->max_gap, new_n);
       sa_src.resize(n);
       int nt = sc.nthreads;
       if (nt > static_cast<int>(n)) nt = 1;
@@ -707,10 +730,12 @@ bool inflate_window(DecodeWindow* w, int64_t keep, int nthreads,
 // thread walks each window's records in record order, and the head of a
 // record split across windows moves to the front of the next.  No window
 // reaches past that last member, so a decode inflates the same members as
-// one that reads a member whenever the walk needs more bytes.
+// one that reads a member whenever the walk needs more bytes.  Every
+// record of the range counts as walked.
 template <typename F>
 bool decode_range(BamCore* bc, int64_t lo, int64_t hi, F&& fn) {
   if (lo >= hi) return true;
+  g_decode_walked.fetch_add(hi - lo, std::memory_order_relaxed);
   FILE* fp = bc->fp;
   int64_t next_c = static_cast<int64_t>(bc->voffset[lo] >> 16);
   int64_t pos = static_cast<int64_t>(bc->voffset[lo] & 0xFFFF);
@@ -755,6 +780,44 @@ bool decode_range(BamCore* bc, int64_t lo, int64_t hi, F&& fn) {
     pos += 4 + block_size;
   }
   return true;
+}
+
+// Walk the records i of [lo, hi) for which walk(i) holds: decode_range
+// over each maximal run of them, fn called for those records alone.  A run
+// that starts in the member where the run before it ends joins it, so no
+// member is inflated twice in one call; the records between the two are
+// walked and skipped.  The other records are answered from the columns.
+template <typename P, typename F>
+bool decode_where(BamCore* bc, int64_t lo, int64_t hi, P&& walk, F&& fn) {
+  auto walk_only = [&](int64_t i, const uint8_t* r, int32_t bsz) {
+    if (walk(i)) fn(i, r, bsz);
+  };
+  int64_t a = -1, b = -1, walked = 0;   // the run [a, b) not yet decoded
+  // record i joins the run if it follows it or starts in the run's last
+  // member: the one record b starts in, unless b starts at its first byte
+  auto joins = [&](int64_t i) {
+    const uint64_t vb = bc->voffset[b];
+    return i == b ||
+           ((vb & 0xFFFF) != 0 && bc->voffset[i] >> 16 == vb >> 16);
+  };
+  auto flush = [&]() {
+    walked += b - a;
+    return decode_range(bc, a, b, walk_only);
+  };
+  bool ok = true;
+  for (int64_t i = lo; i < hi && ok; i++) {
+    if (!walk(i)) continue;
+    if (a >= 0 && joins(i)) {
+      b = i + 1;
+      continue;
+    }
+    if (a >= 0) ok = flush();
+    a = i;
+    b = i + 1;
+  }
+  if (ok && a >= 0) ok = flush();
+  g_decode_column.fetch_add(hi - lo - walked, std::memory_order_relaxed);
+  return ok;
 }
 
 // ---- SA-tag chimera assembly --------------------------------------------
@@ -856,7 +919,7 @@ bool parse_sa_entry(const BamCore* bc, const char* s, const char* end,
 // change invalidates the cache and a full scan runs instead.
 
 constexpr uint32_t BCX_MAGIC = 0x31584342;  // "BCX1"
-constexpr uint32_t BCX_VERSION = 2;
+constexpr uint32_t BCX_VERSION = 3;
 
 template <typename T>
 bool write_vec(FILE* f, const dvec<T>& v) {
@@ -917,7 +980,8 @@ bool save_cache(BamCore* bc, const char* cache_path) {
        write_vec(f, bc->nm) && write_vec(f, bc->voffset) &&
        write_vec(f, bc->name_blob) && write_vec(f, bc->name_off) &&
        write_vec(f, bc->sa_blob) && write_vec(f, bc->sa_off) &&
-       write_vec(f, bc->sa_len);
+       write_vec(f, bc->sa_len) && write_vec(f, bc->aligned) &&
+       write_vec(f, bc->max_gap);
   fclose(f);
   if (!ok) remove(cache_path);
   return ok;
@@ -962,10 +1026,13 @@ bool load_cache(BamCore* bc, const char* cache_path) {
        read_vec(f, bc->nm, mb) && read_vec(f, bc->voffset, mb) &&
        read_vec(f, bc->name_blob, mb) && read_vec(f, bc->name_off, mb) &&
        read_vec(f, bc->sa_blob, mb) && read_vec(f, bc->sa_off, mb) &&
-       read_vec(f, bc->sa_len, mb);
+       read_vec(f, bc->sa_len, mb) && read_vec(f, bc->aligned, mb) &&
+       read_vec(f, bc->max_gap, mb);
   ok = ok && bc->name_off.size() == bc->flag.size() + 1 &&
        bc->sa_off.size() == bc->flag.size() &&
-       bc->sa_len.size() == bc->flag.size();
+       bc->sa_len.size() == bc->flag.size() &&
+       bc->aligned.size() == bc->flag.size() &&
+       bc->max_gap.size() == bc->flag.size();
   fclose(f);
   if (!ok) {
     // clear EVERYTHING a partial load may have filled: the fallback scan
@@ -986,6 +1053,8 @@ bool load_cache(BamCore* bc, const char* cache_path) {
     bc->sa_blob.clear();
     bc->sa_off.clear();
     bc->sa_len.clear();
+    bc->aligned.clear();
+    bc->max_gap.clear();
   }
   return ok;
 }
@@ -1037,14 +1106,17 @@ BamCore* bc_open_cached(const char* path, const char* cache_path,
 int32_t bc_from_cache(BamCore* bc) { return bc->from_cache ? 1 : 0; }
 
 // The process-wide counters, in this order: scan_inflated_bytes,
-// decode_inflated_bytes, decode_pooled_bytes.  Writes the first min(n, 3)
-// into out and returns how many there are.
+// decode_inflated_bytes, decode_pooled_bytes, decode_column_records,
+// decode_walked_records.  Writes the first min(n, 5) into out and returns
+// how many there are.
 int bc_counters(int64_t* out, int n) {
-  const int64_t v[3] = {g_scan_inflated.load(std::memory_order_relaxed),
+  const int64_t v[5] = {g_scan_inflated.load(std::memory_order_relaxed),
                         g_decode_inflated.load(std::memory_order_relaxed),
-                        g_decode_pooled.load(std::memory_order_relaxed)};
-  for (int i = 0; i < n && i < 3; i++) out[i] = v[i];
-  return 3;
+                        g_decode_pooled.load(std::memory_order_relaxed),
+                        g_decode_column.load(std::memory_order_relaxed),
+                        g_decode_walked.load(std::memory_order_relaxed)};
+  for (int i = 0; i < n && i < 5; i++) out[i] = v[i];
+  return 5;
 }
 
 void bc_close(BamCore* bc) { delete bc; }
@@ -1061,6 +1133,8 @@ const int64_t* bc_col_end(BamCore* bc) { return bc->end.data(); }
 const uint8_t* bc_col_mapq(BamCore* bc) { return bc->mapq.data(); }
 const int32_t* bc_col_qlen(BamCore* bc) { return bc->qlen.data(); }
 const int64_t* bc_col_nm(BamCore* bc) { return bc->nm.data(); }
+const int64_t* bc_col_aligned(BamCore* bc) { return bc->aligned.data(); }
+const int64_t* bc_col_max_gap(BamCore* bc) { return bc->max_gap.data(); }
 const uint8_t* bc_name_blob(BamCore* bc) { return bc->name_blob.data(); }
 int64_t bc_name_blob_len(BamCore* bc) { return static_cast<int64_t>(bc->name_blob.size()); }
 const int64_t* bc_name_off(BamCore* bc) { return bc->name_off.data(); }
@@ -1403,8 +1477,12 @@ const double* bc_aln_nm(BamCore* bc) { return bc->aln_nm.data(); }
 int64_t bc_coverage_sum(BamCore* bc, int64_t lo, int64_t hi,
                         int64_t start, int64_t stop,
                         int qual_threshold, int flag_exclude, int min_mapq) {
+  // With qual_threshold <= 0 a counted record that lies inside [start,
+  // stop) adds its aligned-base count from the scan's column, and only the
+  // records that straddle an end are walked; a quality threshold walks
+  // them all.
   int64_t total = 0;
-  bool ok = decode_range(bc, lo, hi, [&](int64_t i, const uint8_t* r, int32_t bsz) {
+  auto add = [&](int64_t i, const uint8_t* r, int32_t bsz) {
     (void)bsz;
     if (bc->end[i] <= start) return;
     uint16_t fl;
@@ -1444,7 +1522,22 @@ int64_t bc_coverage_sum(BamCore* bc, int64_t lo, int64_t hi,
         qpos += n;
       }
     }
-  });
+  };
+  if (qual_threshold > 0) {
+    return decode_range(bc, lo, hi, add) ? total : -1;
+  }
+  auto counted = [&](int64_t i) {
+    return bc->end[i] > start && !(bc->flag[i] & flag_exclude) &&
+           bc->mapq[i] >= min_mapq;
+  };
+  auto inside = [&](int64_t i) {
+    return bc->pos[i] >= start && bc->end[i] <= stop;
+  };
+  for (int64_t i = lo; i < hi; i++) {
+    if (counted(i) && inside(i)) total += bc->aligned[i];
+  }
+  bool ok = decode_where(
+      bc, lo, hi, [&](int64_t i) { return counted(i) && !inside(i); }, add);
   return ok ? total : -1;
 }
 
@@ -1496,18 +1589,22 @@ int bc_coverage_profile(BamCore* bc, int64_t lo, int64_t hi,
 
 int64_t bc_del_gaps(BamCore* bc, int64_t lo, int64_t hi,
                     int64_t start, int64_t min_del_len, int min_mapq) {
+  // only a record whose largest gap, kept by the scan, exceeds
+  // min_del_len can have a row, so only such records are walked
   bc->gaps.clear();
-  bool ok = decode_range(bc, lo, hi, [&](int64_t i, const uint8_t* r, int32_t bsz) {
+  auto walk = [&](int64_t i) {
+    return bc->end[i] > start && bc->mapq[i] >= min_mapq &&
+           bc->max_gap[i] > min_del_len;
+  };
+  bool ok = decode_where(bc, lo, hi, walk, [&](int64_t i, const uint8_t* r,
+                                               int32_t bsz) {
     (void)bsz;
-    if (bc->end[i] <= start) return;
-    if (r[9] < min_mapq) return;
     uint16_t n_cigar;
     memcpy(&n_cigar, r + 12, 2);
     const uint8_t* cig = r + 32 + r[8];
     // walk blocks: aligned (M/=/X) runs, split at D/N
     int64_t rpos = bc->pos[i];
     int64_t blk_first = -1, prev_blk_end = -1, blk_last = -1;
-    int64_t pending_gap_prev = -1;
     size_t first_gap_row = bc->gaps.size();
     for (int ci = 0; ci < n_cigar; ci++) {
       uint32_t c;
@@ -1530,7 +1627,6 @@ int64_t bc_del_gaps(BamCore* bc, int64_t lo, int64_t hi,
         rpos += n;
       }
     }
-    (void)pending_gap_prev;
     for (size_t k = first_gap_row; k < bc->gaps.size(); k++) {
       bc->gaps[k].blk_first = blk_first;
       bc->gaps[k].blk_last = blk_last;

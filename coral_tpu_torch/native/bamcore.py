@@ -4,7 +4,8 @@ Exposes ``scan_into(bamfile, path)`` which populates a
 ``coral_tpu_torch.io.bam.BamFile`` with zero-copy numpy views over the C++
 structure-of-arrays record table, plus region-query wrappers used by
 ``BamFile`` when the native backend is active, and ``counters()``, the
-library's process-wide counts of payload bytes inflated.
+library's process-wide counts of payload bytes inflated and of the records
+its region decodes answered from the scan's columns or walked.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ def _load():
         ("bc_col_pos", C.c_int64), ("bc_col_end", C.c_int64),
         ("bc_col_mapq", C.c_uint8), ("bc_col_qlen", C.c_int32),
         ("bc_col_nm", C.c_int64), ("bc_name_off", C.c_int64),
+        ("bc_col_aligned", C.c_int64), ("bc_col_max_gap", C.c_int64),
         ("bc_sa_off", C.c_int64), ("bc_sa_len", C.c_int64),
         ("bc_name_blob", C.c_uint8), ("bc_sa_blob", C.c_uint8),
     ]:
@@ -163,6 +165,10 @@ def scan_into(bam, path: str, cache_path: str | None = None) -> None:
     bam.mapq = _as_np(lib.bc_col_mapq(h), np.uint8, n)
     bam.qlen = _as_np(lib.bc_col_qlen(h), np.int32, n)
     bam.nm = _as_np(lib.bc_col_nm(h), np.int64, n)
+    # each record's aligned bases and largest gap between aligned ops,
+    # which answer most of a region decode without inflating it
+    bam.aligned = _as_np(lib.bc_col_aligned(h), np.int64, n)
+    bam.max_gap = _as_np(lib.bc_col_max_gap(h), np.int64, n)
     bam.name_off = _as_np(lib.bc_name_off(h), np.int64, n + 1)
     nb_len = lib.bc_name_blob_len(h)
     bam.name_blob = bytes(_as_np(lib.bc_name_blob(h), np.uint8, nb_len)) if nb_len else b""
@@ -173,14 +179,16 @@ def scan_into(bam, path: str, cache_path: str | None = None) -> None:
 
 
 COUNTERS = ("scan_inflated_bytes", "decode_inflated_bytes",
-            "decode_pooled_bytes")
+            "decode_pooled_bytes", "decode_column_records",
+            "decode_walked_records")
 
 
 def counters() -> dict:
-    """The library's counters of BGZF payload bytes inflated in this
-    process, by the scan, by region decodes, and by region decodes on more
-    than one thread; they survive ``bc_close``.  Raises OSError when the
-    library cannot be built."""
+    """The library's counters in this process: BGZF payload bytes inflated
+    by the scan, by region decodes, and by region decodes on more than one
+    thread; records of region decodes answered from the scan's columns and
+    records walked from inflated bytes.  They survive ``bc_close``.
+    Raises OSError when the library cannot be built."""
     lib = _load()
     out = (C.c_int64 * len(COUNTERS))()
     lib.bc_counters(out, len(COUNTERS))

@@ -16,7 +16,9 @@ sequence number, read with :func:`last_seq` and :func:`spans_since`.
 
 Counters: :func:`counters` snapshots the native BAM core's process-wide
 counts of BGZF payload bytes inflated (``scan_inflated_bytes``,
-``decode_inflated_bytes``) and the program's own counts, added under the
+``decode_inflated_bytes``), of region-decode records answered from the
+scan's columns or walked (``decode_column_records``,
+``decode_walked_records``) and the program's own counts, added under the
 lock by :func:`count`; all count whether tracing is on or not.  The
 program's own (``COUNTERS``): the rows ``BamFile.del_gap_alignments``
 returned (``del_gap_alignments``); of each amplicon the decomposition

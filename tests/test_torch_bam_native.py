@@ -1,5 +1,7 @@
 """The port's native region decodes against the reference package's
-pure-Python reader, at 1, 2 and 8 inflate threads.
+pure-Python reader, at 1, 2 and 8 inflate threads; the sums and gap
+searches that the scan's columns answer against the reference package's
+readers and the port's own full decode.
 
 The fixture's payload is rewritten as BGZF members of BLOCK bytes, so
 records straddle members and windows, and a contig spans more than two
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 
 from coral_tpu.io.bam import BamFile as RefBam
+from coral_tpu.io.bam import _native_available as _ref_native_available
 from coral_tpu_torch.io.bam import FLAG_EXCLUDE_ALL
 from coral_tpu_torch.io.bam import BamFile
 from coral_tpu_torch.io.bam import _native_available
@@ -66,6 +69,11 @@ def _fixture(tmp_path, n=600, seed=21):
     for k in range(3):
         add(f"few{k}", 0, "chr1", 1_800_000 + 100 * k, 60, "150M", 150)
     add("last", 0, "chr2", 1_500_000, 60, "3000M", 3000)
+    # largest gaps of exactly 600 (a smaller one beside it), 700 across an
+    # N, and 0 across an insertion
+    add("gap600", 0, "chr2", 1_600_000, 60, "100M600D100M5D100M", 300)
+    add("gap700n", 0, "chr2", 1_600_500, 60, "100M700N100M", 200)
+    add("gap0", 0, "chr2", 1_601_000, 60, "100M10I100M", 210)
     src = str(tmp_path / "src.bam")
     write_bam(src, REFS, recs)
     payload = gzip.decompress(open(src, "rb").read())
@@ -221,7 +229,313 @@ def test_decode_errors_match_one_thread(bams, tmp_path, nthreads, damage,
                 fh.write(b"\xff" * 8)
             if damage == "corrupt_member_truncated_after":
                 os.truncate(p, _member_offsets(raw)[k + 2] + 40)
+        # a quality threshold decodes every member of the reference
         with pytest.raises(RuntimeError) as err:
-            nat.coverage_sum("chr1", 0, 2_000_000)
+            nat.coverage_sum("chr1", 0, 2_000_000, quality_threshold=15)
         errors[nt] = str(err.value)
     assert errors[1] == errors[nthreads] == message
+
+
+# ---- the scan's columns ---------------------------------------------------
+
+COLUMN_THREADS = [1, 8]
+MIN_DEL_LENS = [0, 1, 599, 600, 601, 10**9]
+
+
+@pytest.fixture(scope="module")
+def column_bams(bams):
+    """The reference package's Python reader, its native reader (the full
+    decode the port's column path replaced) where it is built, and the
+    port's native reader at 1 and 8 threads."""
+    ref, nats = bams
+    ref_native = (RefBam(ref.path, backend="native")
+                  if _ref_native_available() else None)
+    return ref, ref_native, {nt: nats[nt] for nt in COLUMN_THREADS}
+
+
+def _counts():
+    from coral_tpu_torch.native import bamcore
+
+    return bamcore.counters()
+
+
+def _delta(c0, c1):
+    return {k: c1[k] - c0[k] for k in c0}
+
+
+def _payload_bytes(ref, lo, hi):
+    """Payload bytes of the members a full decode of records [lo, hi)
+    inflates: from the member of record lo's first byte up to the member
+    where record hi starts (that one too unless hi starts it), or to the
+    end of the file after the last record."""
+    if lo >= hi:
+        return 0
+    first = int(ref._upos[lo]) // BLOCK
+    if hi < ref.n_records:
+        up = int(ref._upos[hi])
+        end = up // BLOCK + (up % BLOCK > 0)
+    else:
+        end = -(-len(ref._payload) // BLOCK)
+    return min(end * BLOCK, len(ref._payload)) - first * BLOCK
+
+
+def _record_in(ref, name):
+    return next(i for i in range(ref.n_records) if ref.name(i) == name)
+
+
+def _column_queries(ref, case):
+    rng = random.Random(17)
+    if case == "random":
+        out = []
+        for _ in range(40):
+            s = rng.randrange(0, 1_000_000)
+            out.append((rng.choice(["chr1", "chr2"]), s,
+                        s + rng.choice([1, 50, 3_000, 40_000, 300_000])))
+        return out
+    if case == "inside_one_read":
+        out = []
+        for i in rng.sample(range(ref.n_records), 20):
+            if ref.end[i] - ref.pos[i] > 40:
+                c = ref.references[int(ref.ref_id[i])][0]
+                out.append((c, int(ref.pos[i]) + 10, int(ref.pos[i]) + 20))
+        return out
+    return [(c, 0, n) for c, n in REFS]
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("case", ["random", "inside_one_read",
+                                  "whole_references"])
+@pytest.mark.parametrize("nthreads", COLUMN_THREADS)
+def test_column_coverage_sum(column_bams, nthreads, case, filtered):
+    """A coverage sum without a quality threshold equals the reference
+    readers' and the port's own per-base full decode; each call answers or
+    walks every candidate record once, walks every straddling one, and
+    on whole references inflates nothing."""
+    ref, ref_native, nats = column_bams
+    nat = nats[nthreads]
+    kw = ({"flag_exclude": FLAG_EXCLUDE_ALL, "min_mapq": 20} if filtered
+          else {})
+    for chrom, s, e in _column_queries(ref, case):
+        lo, hi = nat.overlap_range(chrom, s, e)
+        c0 = _counts()
+        got = nat.coverage_sum(chrom, s, e, **kw)
+        d = _delta(c0, _counts())
+        assert got == ref.coverage_sum(chrom, s, e, **kw)
+        if ref_native is not None:
+            assert got == ref_native.coverage_sum(chrom, s, e, **kw)
+        assert got == int(nat.coverage_profile(chrom, s, e, **kw).sum())
+        assert d["decode_column_records"] + d["decode_walked_records"] == \
+            hi - lo
+        straddle = [i for i in range(lo, hi)
+                    if nat.end[i] > s and (nat.pos[i] < s or nat.end[i] > e)
+                    and not nat.flag[i] & kw.get("flag_exclude", 0)
+                    and nat.mapq[i] >= kw.get("min_mapq", 0)]
+        assert d["decode_walked_records"] >= len(straddle)
+        if not straddle:
+            assert d["decode_walked_records"] == 0
+            assert d["decode_inflated_bytes"] == 0
+        if case == "inside_one_read" and not filtered:
+            assert straddle == [i for i in range(lo, hi) if nat.end[i] > s]
+        if case == "whole_references":
+            assert hi - lo > 100 and d["decode_column_records"] == hi - lo
+
+
+@pytest.mark.parametrize("nthreads", COLUMN_THREADS)
+def test_quality_threshold_and_profile_inflate_as_before(column_bams,
+                                                          nthreads):
+    """A coverage sum with a quality threshold and a coverage profile walk
+    every candidate record and inflate exactly the members that hold
+    them, as the full decode always did."""
+    ref, _, nats = column_bams
+    nat = nats[nthreads]
+    rng = random.Random(29)
+    queries = [(c, 0, n) for c, n in REFS] + [
+        (rng.choice(["chr1", "chr2"]), s, s + rng.randrange(1, 60_000))
+        for s in (rng.randrange(0, 1_000_000) for _ in range(10))]
+    for chrom, s, e in queries:
+        lo, hi = nat.overlap_range(chrom, s, e)
+        for call in (lambda: nat.coverage_sum(chrom, s, e,
+                                              quality_threshold=15),
+                     lambda: nat.coverage_profile(chrom, s, e),
+                     lambda: nat.coverage_profile(chrom, s, e,
+                                                  quality_threshold=15)):
+            c0 = _counts()
+            call()
+            d = _delta(c0, _counts())
+            assert d["decode_inflated_bytes"] == _payload_bytes(ref, lo, hi)
+            assert d["decode_walked_records"] == hi - lo
+            assert d["decode_column_records"] == 0
+
+
+@pytest.mark.parametrize("min_del_len", MIN_DEL_LENS)
+@pytest.mark.parametrize("nthreads", COLUMN_THREADS)
+def test_column_del_gaps(column_bams, nthreads, min_del_len):
+    """The deletion-gap search walks only records whose largest gap
+    exceeds ``min_del_len`` and returns the reference readers' rows, in
+    record order; a read whose largest gap is exactly 600 has rows below
+    600 alone."""
+    ref, ref_native, nats = column_bams
+    nat = nats[nthreads]
+    gap600 = _record_in(ref, "gap600")
+    assert int(nat.max_gap[gap600]) == 600
+    for chrom, s, e in [("chr1", 0, 2_000_000), ("chr2", 0, 2_000_000),
+                        ("chr2", 1_550_000, 1_700_000),
+                        ("chr1", 400_000, 430_000)]:
+        lo, hi = nat.overlap_range(chrom, s, e)
+        c0 = _counts()
+        got = nat.del_gap_alignments(chrom, s, e, min_del_len=min_del_len)
+        d = _delta(c0, _counts())
+        assert got == ref.del_gap_alignments(chrom, s, e,
+                                             min_del_len=min_del_len)
+        if ref_native is not None:
+            assert got == ref_native.del_gap_alignments(
+                chrom, s, e, min_del_len=min_del_len)
+        assert d["decode_column_records"] + d["decode_walked_records"] == \
+            hi - lo
+        need = sum(1 for i in range(lo, hi)
+                   if nat.end[i] > s and nat.mapq[i] >= 20
+                   and nat.max_gap[i] > min_del_len)
+        assert need <= d["decode_walked_records"]
+        assert len(got) <= need
+        if chrom == "chr2" and s > 0:
+            names = [row[0] for row in got]
+            assert ("gap600" in names) == (min_del_len < 600)
+            assert ("gap700n" in names) == (min_del_len < 700)
+            assert "gap0" not in names
+        if min_del_len == 10**9:
+            assert not got and d["decode_walked_records"] == 0
+            assert d["decode_inflated_bytes"] == 0
+
+
+def test_scan_columns_match_the_records(column_bams):
+    """Each record's aligned-base count and largest gap between aligned
+    blocks, as the scan keeps them, from the reference reader's records."""
+    ref, _, nats = column_bams
+    buf = memoryview(ref._payload)
+    aligned, max_gap = [], []
+    for i in range(ref.n_records):
+        rec = ref._decode_at(buf, i)
+        aligned.append(sum(n for _, n, _ in rec.aligned_runs()))
+        b = rec.blocks()
+        max_gap.append(max((abs(b[k + 1][0] - b[k][1])
+                            for k in range(len(b) - 1)), default=0))
+    for nat in nats.values():
+        np.testing.assert_array_equal(nat.aligned, aligned)
+        np.testing.assert_array_equal(nat.max_gap, max_gap)
+
+
+def test_scan_cache_keeps_columns_and_rescans_an_old_version(column_bams,
+                                                             tmp_path):
+    """The scan cache keeps both columns; a cache of the version before
+    them (no columns, version 2) is rescanned and rewritten."""
+    ref, _, nats = column_bams
+    p = str(tmp_path / "cached.bam")
+    with open(ref.path, "rb") as src, open(p, "wb") as dst:
+        dst.write(src.read())
+    first = BamFile(p, backend="native", scan_cache=True)
+    assert not first.scan_from_cache
+    again = BamFile(p, backend="native", scan_cache=True)
+    assert again.scan_from_cache
+    for col in ("aligned", "max_gap"):
+        np.testing.assert_array_equal(getattr(again, col),
+                                      getattr(nats[1], col))
+    assert again.coverage_sum("chr1", 0, 2_000_000) == \
+        ref.coverage_sum("chr1", 0, 2_000_000)
+    assert again.del_gap_alignments("chr2", 0, 2_000_000, 600) == \
+        ref.del_gap_alignments("chr2", 0, 2_000_000, 600)
+    # the same file as the version before the columns wrote it: the two
+    # trailing column vectors gone, the version field 2
+    raw = bytearray(open(p + ".scanx", "rb").read())
+    assert struct.unpack_from("<II", raw, 0)[1] == 3
+    n = again.n_records
+    old = raw[:len(raw) - 2 * (8 + 8 * n)]
+    struct.pack_into("<I", old, 4, 2)
+    with open(p + ".scanx", "wb") as fh:
+        fh.write(old)
+    os.utime(p + ".scanx")
+    rescanned = BamFile(p, backend="native", scan_cache=True)
+    assert not rescanned.scan_from_cache
+    for col in ("aligned", "max_gap"):
+        np.testing.assert_array_equal(getattr(rescanned, col),
+                                      getattr(nats[1], col))
+    assert rescanned.coverage_sum("chr2", 0, 2_000_000) == \
+        ref.coverage_sum("chr2", 0, 2_000_000)
+    assert struct.unpack_from("<II", open(p + ".scanx", "rb").read(),
+                              0)[1] == 3
+    assert BamFile(p, backend="native", scan_cache=True).scan_from_cache
+
+
+@pytest.fixture(scope="module")
+def dense_bams(tmp_path_factory):
+    """Short reads every 33 bases, in members of 4,096 bytes (a dozen
+    records each), so that runs of straddling records share members with
+    records answered from the columns: the reference package's Python
+    reader and the port's native reader at 1 and 8 threads."""
+    if not _native_available():
+        pytest.skip("the port's native BAM core cannot be built here")
+    rng = random.Random(8)
+    qrng = np.random.default_rng(8)
+    recs = []
+    for i in range(3000):
+        m1 = rng.randrange(10, 200)
+        if rng.random() < 0.4:
+            m2 = rng.randrange(10, 200)
+            cigar = f"{m1}M{rng.choice([5, 599, 600, 601, 900])}D{m2}M"
+            qlen = m1 + m2
+        else:
+            cigar, qlen = f"{m1}M", m1
+        recs.append(BamRecord(
+            f"d{i:05d}", rng.choice([0, 16, 0x100, 0x800]), "chr1", 33 * i,
+            rng.randrange(0, 61), cigar,
+            quals=qrng.integers(0, 60, qlen, dtype=np.uint8).tobytes(),
+            tags={"NM": 1}))
+    d = tmp_path_factory.mktemp("densecols")
+    src = str(d / "src.bam")
+    write_bam(src, REFS, recs)
+    payload = gzip.decompress(open(src, "rb").read())
+    p = str(d / "dense.bam")
+    with open(p, "wb") as fp:
+        for i in range(0, len(payload), 4096):
+            fp.write(compress_block(payload[i:i + 4096], level=1))
+        fp.write(BGZF_EOF)
+    return (RefBam(p, backend="python"),
+            {nt: _native(p, nt) for nt in COLUMN_THREADS})
+
+
+@pytest.mark.parametrize("query", ["coverage_sum", "del_gaps"])
+@pytest.mark.parametrize("nthreads", COLUMN_THREADS)
+def test_column_runs_share_members(dense_bams, nthreads, query):
+    """Runs of walked records that meet in a member are decoded as one,
+    the records between them walked and skipped: the results equal the
+    reference reader's, and more records are walked than need it."""
+    ref, nats = dense_bams
+    nat = nats[nthreads]
+    rng = random.Random(31)
+    walked = needed = 0
+    for _ in range(60):
+        s = rng.randrange(0, 95_000)
+        e = s + rng.choice([30, 300, 3_000])
+        lo, hi = nat.overlap_range("chr1", s, e)
+        c0 = _counts()
+        if query == "coverage_sum":
+            kw = rng.choice([{}, {"flag_exclude": FLAG_EXCLUDE_ALL,
+                                  "min_mapq": 20}])
+            assert nat.coverage_sum("chr1", s, e, **kw) == \
+                ref.coverage_sum("chr1", s, e, **kw)
+            needed += sum(
+                1 for i in range(lo, hi)
+                if nat.end[i] > s and (nat.pos[i] < s or nat.end[i] > e)
+                and not nat.flag[i] & kw.get("flag_exclude", 0)
+                and nat.mapq[i] >= kw.get("min_mapq", 0))
+        else:
+            m = rng.choice([0, 599, 600])
+            assert nat.del_gap_alignments("chr1", s, e, min_del_len=m) == \
+                ref.del_gap_alignments("chr1", s, e, min_del_len=m)
+            needed += sum(1 for i in range(lo, hi)
+                          if nat.end[i] > s and nat.mapq[i] >= 20
+                          and nat.max_gap[i] > m)
+        d = _delta(c0, _counts())
+        assert d["decode_column_records"] + d["decode_walked_records"] == \
+            hi - lo
+        walked += d["decode_walked_records"]
+    assert needed < walked

@@ -14,11 +14,14 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the port's BAM core counts the bytes it inflates, keeps the handle's
+# the port's BAM core counts the bytes it inflates and the records its
+# region decodes answer from the scan's columns or walk, keeps the handle's
 # thread count for its region decodes, inflates a scan window through the
-# helper its region decodes share and has no BC_TIMING switch: the edit
-# that turns the original into the port, as (text of the original, its
-# replacement) pairs; each text occurs once in the original
+# helper its region decodes share, keeps two more columns (each record's
+# aligned bases and largest gap, in the scan and its cache) and has no
+# BC_TIMING switch: the edit that turns the original into the port, as
+# (text of the original, its replacement) pairs; each text occurs once in
+# the original
 _BAMCORE_CPP_EDIT = (
     ("// Exposed as a C ABI for ctypes; no Python headers required.\n",
      """// Exposed as a C ABI for ctypes; no Python headers required.
@@ -28,14 +31,85 @@ _BAMCORE_CPP_EDIT = (
 // (decode_inflated_bytes), and the part of the latter inflated on more
 // than one thread (decode_pooled_bytes).  They live outside any handle,
 // so they outlast bc_close, and count always (one relaxed add a window).
+// Two more count the records of region decodes: those answered from the
+// scan's columns (decode_column_records, one relaxed add a call) and those
+// walked from inflated bytes (decode_walked_records, one a run walked).
 """),
     ("#include <algorithm>\n", "#include <algorithm>\n#include <atomic>\n"),
     ("\nconstexpr uint32_t kRefConsuming", """
 std::atomic<int64_t> g_scan_inflated{0};
 std::atomic<int64_t> g_decode_inflated{0};
 std::atomic<int64_t> g_decode_pooled{0};
+std::atomic<int64_t> g_decode_column{0};
+std::atomic<int64_t> g_decode_walked{0};
 
 constexpr uint32_t kRefConsuming"""),
+    ("  dvec<int64_t> sa_len;\n\n",
+     "  dvec<int64_t> sa_len;\n"
+     "  dvec<int64_t> aligned;    // bases in the record's M/=/X ops\n"
+     "  dvec<int64_t> max_gap;    // largest gap between consecutive such ops\n"
+     "\n"),
+    ("""  int64_t ref_len = 0;
+  for (int ci = 0; ci < n_cigar; ci++) {
+    uint32_t c;
+    memcpy(&c, cig_p + 4 * ci, 4);
+    if ((1u << (c & 0xF)) & kRefConsuming) ref_len += c >> 4;
+  }
+""", """  int64_t ref_len = 0;
+  // the aligned-base count and the largest gap between consecutive
+  // aligned ops, the gap measured as bc_del_gaps measures it
+  int64_t aligned = 0, max_gap = 0, prev_blk_end = -1;
+  for (int ci = 0; ci < n_cigar; ci++) {
+    uint32_t c;
+    memcpy(&c, cig_p + 4 * ci, 4);
+    if ((1u << (c & 0xF)) & kAligned) {
+      const int64_t bstart = pos + ref_len;
+      if (prev_blk_end >= 0) {
+        const int64_t gap = bstart - prev_blk_end;
+        max_gap = std::max(max_gap, gap < 0 ? -gap : gap);
+      }
+      prev_blk_end = bstart + (c >> 4);
+      aligned += c >> 4;
+    }
+    if ((1u << (c & 0xF)) & kRefConsuming) ref_len += c >> 4;
+  }
+"""),
+    ("  bc->nm[gidx] = nmv;\n",
+     "  bc->nm[gidx] = nmv;\n"
+     "  bc->aligned[gidx] = aligned;\n"
+     "  bc->max_gap[gidx] = max_gap;\n"),
+    ("      ensure_size(bc->sa_off, new_n);\n",
+     "      ensure_size(bc->sa_off, new_n);\n"
+     "      ensure_size(bc->aligned, new_n);\n"
+     "      ensure_size(bc->max_gap, new_n);\n"),
+    ("constexpr uint32_t BCX_VERSION = 2;\n",
+     "constexpr uint32_t BCX_VERSION = 3;\n"),
+    ("       write_vec(f, bc->sa_len);\n",
+     "       write_vec(f, bc->sa_len) && write_vec(f, bc->aligned) &&\n"
+     "       write_vec(f, bc->max_gap);\n"),
+    ("""       read_vec(f, bc->sa_len, mb);
+  ok = ok && bc->name_off.size() == bc->flag.size() + 1 &&
+       bc->sa_off.size() == bc->flag.size() &&
+       bc->sa_len.size() == bc->flag.size();
+""", """       read_vec(f, bc->sa_len, mb) && read_vec(f, bc->aligned, mb) &&
+       read_vec(f, bc->max_gap, mb);
+  ok = ok && bc->name_off.size() == bc->flag.size() + 1 &&
+       bc->sa_off.size() == bc->flag.size() &&
+       bc->sa_len.size() == bc->flag.size() &&
+       bc->aligned.size() == bc->flag.size() &&
+       bc->max_gap.size() == bc->flag.size();
+"""),
+    ("    bc->sa_len.clear();\n  }\n",
+     "    bc->sa_len.clear();\n"
+     "    bc->aligned.clear();\n"
+     "    bc->max_gap.clear();\n"
+     "  }\n"),
+    ("const int64_t* bc_col_nm(BamCore* bc) { return bc->nm.data(); }\n",
+     "const int64_t* bc_col_nm(BamCore* bc) { return bc->nm.data(); }\n"
+     "const int64_t* bc_col_aligned(BamCore* bc) "
+     "{ return bc->aligned.data(); }\n"
+     "const int64_t* bc_col_max_gap(BamCore* bc) "
+     "{ return bc->max_gap.data(); }\n"),
     ("  bool from_cache = false;   // record table loaded from a scan cache\n",
      "  bool from_cache = false;   // record table loaded from a scan cache\n"
      "  int nthreads = 1;          // threads a region decode inflates on\n"),
@@ -149,14 +223,17 @@ bool scan_file(BamCore* bc, int nthreads) {
 """),
     ("void bc_close(BamCore* bc) { delete bc; }\n",
      """// The process-wide counters, in this order: scan_inflated_bytes,
-// decode_inflated_bytes, decode_pooled_bytes.  Writes the first min(n, 3)
-// into out and returns how many there are.
+// decode_inflated_bytes, decode_pooled_bytes, decode_column_records,
+// decode_walked_records.  Writes the first min(n, 5) into out and returns
+// how many there are.
 int bc_counters(int64_t* out, int n) {
-  const int64_t v[3] = {g_scan_inflated.load(std::memory_order_relaxed),
+  const int64_t v[5] = {g_scan_inflated.load(std::memory_order_relaxed),
                         g_decode_inflated.load(std::memory_order_relaxed),
-                        g_decode_pooled.load(std::memory_order_relaxed)};
-  for (int i = 0; i < n && i < 3; i++) out[i] = v[i];
-  return 3;
+                        g_decode_pooled.load(std::memory_order_relaxed),
+                        g_decode_column.load(std::memory_order_relaxed),
+                        g_decode_walked.load(std::memory_order_relaxed)};
+  for (int i = 0; i < n && i < 5; i++) out[i] = v[i];
+  return 5;
 }
 
 void bc_close(BamCore* bc) { delete bc; }
@@ -185,9 +262,13 @@ EDITS = {"native/bamcore.cpp": _BAMCORE_CPP_EDIT}
 
 # relative path -> sections that are the port's own, each from a line that
 # starts with its first text up to the line that starts with its second:
-# the port inflates a region's members on the handle's threads
+# the port inflates a region's members on the handle's threads, and answers
+# a coverage sum or a deletion-gap search from the scan's columns where it
+# can, walking only the records they cannot answer
 OWN_SECTIONS = {"native/bamcore.cpp": (
-    ("// ---- region decode", "// ---- SA-tag chimera assembly"),)}
+    ("// ---- region decode", "// ---- SA-tag chimera assembly"),
+    ("int64_t bc_coverage_sum(", "int bc_coverage_profile("),
+    ("int64_t bc_del_gaps(", "void bc_del_gaps_fetch("))}
 
 # relative path -> (functions, classes or module-level names that may
 # differ, substrings or patterns of other lines that may differ)

@@ -240,6 +240,15 @@ def test_scan_inflates_the_whole_payload_once(sample):
     bam.close()
 
 
+# options under which each query walks every record of its range: a
+# coverage sum with a quality threshold reads each base's quality, and a
+# deletion-gap search that every gap passes and no MAPQ floor stops reads
+# every record's CIGAR; the scan's columns answer neither
+WALK_ALL = {"coverage_sum": {"quality_threshold": 15},
+            "coverage_profile": {},
+            "del_gap_alignments": {"min_del_len": -1, "min_mapq": 0}}
+
+
 @pytest.mark.parametrize("query", ["coverage_sum", "coverage_profile",
                                    "del_gap_alignments"])
 def test_region_decode_over_a_contig_inflates_its_records(sample, query):
@@ -247,11 +256,9 @@ def test_region_decode_over_a_contig_inflates_its_records(sample, query):
     rid = max(range(len(bam.references)),
               key=lambda i: _record_bytes_by_ref(sample[0]).get(i, 0))
     chrom, length = bam.references[rid]
-    args = (chrom, 0, length) + ((30,) if query == "del_gap_alignments"
-                                 else ())
     tracing.enable()
     seq, c0 = tracing.last_seq(), tracing.counters()
-    getattr(bam, query)(*args)
+    getattr(bam, query)(chrom, 0, length, **WALK_ALL[query])
     c1 = tracing.counters()
     decoded = c1["decode_inflated_bytes"] - c0["decode_inflated_bytes"]
     assert decoded >= _record_bytes_by_ref(sample[0])[rid] > 0
@@ -266,7 +273,7 @@ def test_counters_survive_close(sample):
 
     bam = BamFile(sample[0])
     chrom, length = bam.references[0]
-    bam.coverage_sum(chrom, 0, length)
+    bam.coverage_sum(chrom, 0, length, **WALK_ALL["coverage_sum"])
     c1 = tracing.counters()
     assert c1["scan_inflated_bytes"] > 0 and c1["decode_inflated_bytes"] > 0
     bam.close()
@@ -384,16 +391,19 @@ def _extent(py, chrom, s, e):
 @pytest.mark.parametrize("query", ["coverage_sum", "coverage_profile",
                                    "del_gap_alignments"])
 def test_pooled_decode_inflates_the_same_members(small_members, query):
-    """At 1 and 8 threads a decode inflates exactly the members from the
-    one that holds its first record's first byte to the one that holds
-    its last record's last byte; at 8 threads every window of more than
-    one member (128 members a window) on the pool."""
+    """At 1 and 8 threads a decode that walks every record of its range
+    inflates exactly the members from the one that holds its first
+    record's first byte to the one that holds its last record's last
+    byte; at 8 threads every window of more than one member (128 members
+    a window) on the pool.  The deletion-gap search walks every record
+    that ends past its start, so its ranges start at 0."""
     py = BamFile(small_members, backend="python")
     isizes = _bgzf_isizes(small_members)
     chrom, length = py.references[0]
     n = py.n_records
     regions = [(0, length),
-               (int(py.pos[n // 3]), int(py.pos[2 * n // 3]))]
+               (0 if query == "del_gap_alignments" else int(py.pos[n // 3]),
+                int(py.pos[2 * n // 3]))]
     expected = []
     for s, e in regions:
         first, last = _extent(py, chrom, s, e)
@@ -406,10 +416,8 @@ def test_pooled_decode_inflates_the_same_members(small_members, query):
     for nthreads in (1, 8):
         bam = _decode_with(small_members, nthreads)
         for (s, e), (want, want_pooled) in zip(regions, expected):
-            args = (chrom, s, e) + ((30,) if query == "del_gap_alignments"
-                                    else ())
             c0 = tracing.counters()
-            getattr(bam, query)(*args)
+            getattr(bam, query)(chrom, s, e, **WALK_ALL[query])
             c1 = tracing.counters()
             decoded = c1["decode_inflated_bytes"] - c0["decode_inflated_bytes"]
             pooled = c1["decode_pooled_bytes"] - c0["decode_pooled_bytes"]
