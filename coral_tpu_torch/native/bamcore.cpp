@@ -46,7 +46,40 @@ std::atomic<int64_t> g_decode_column{0};
 std::atomic<int64_t> g_decode_walked{0};
 
 constexpr uint32_t kRefConsuming = (1u << 0) | (1u << 2) | (1u << 3) | (1u << 7) | (1u << 8);
+constexpr uint32_t kQueryConsuming = (1u << 0) | (1u << 1) | (1u << 4) | (1u << 7) | (1u << 8);
 constexpr uint32_t kAligned = (1u << 0) | (1u << 7) | (1u << 8);
+
+// Walk a record's CIGAR (n_cigar ops at cig, its first base at reference
+// pos) and call fn(rstart, rend, qoff, prev_end) for each aligned (M/=/X)
+// block in order: its reference span [rstart, rend), the query offset of
+// its first base, and the end of the aligned block before it (-1 for the
+// first).
+template <typename F>
+inline void walk_aligned_blocks(const uint8_t* cig, int n_cigar, int64_t pos,
+                                F&& fn) {
+  int64_t rpos = pos, qpos = 0, prev_end = -1;
+  for (int ci = 0; ci < n_cigar; ci++) {
+    uint32_t c;
+    memcpy(&c, cig + 4 * ci, 4);
+    const uint32_t op = 1u << (c & 0xF);
+    const int64_t n = c >> 4;
+    if (op & kAligned) {
+      fn(rpos, rpos + n, qpos, prev_end);
+      prev_end = rpos + n;
+    }
+    if (op & kRefConsuming) rpos += n;
+    if (op & kQueryConsuming) qpos += n;
+  }
+}
+
+// The gap between an aligned block that starts at rstart and the one
+// before it that ends at prev_end (>= 0).  The scan keeps each record's
+// largest in its max_gap column and bc_del_gaps walks only the records
+// whose max_gap exceeds min_del_len, so both must measure it here.
+inline int64_t block_gap(int64_t prev_end, int64_t rstart) {
+  const int64_t gap = rstart - prev_end;
+  return gap < 0 ? -gap : gap;
+}
 
 // Allocator whose default-construct is a no-op: vector::resize() leaves the
 // new region uninitialized instead of memsetting it.  The scan writes every
@@ -161,11 +194,9 @@ bool inflate_raw(const uint8_t* src, int n, uint8_t* dst, int cap, int* out_n) {
 
 // Sequentially read one whole BGZF member at the current file position
 // (assumed == coffset): header, BC subfield, compressed payload, trailer —
-// ONE buffered fread stream, no fseeks.  The window loop calls this
-// back-to-back; the seek-per-field variant (read_block_header) discarded
-// the stdio readahead buffer ~4x per 64 KiB member, turning whole-genome
-// scans into millions of small non-sequential reads.  Returns false with
-// err=="" at clean EOF.
+// one buffered fread stream and no fseek, so that a window's members are
+// read back to back from stdio's readahead.  Returns false with err==""
+// at clean EOF.
 bool read_block_seq(FILE* fp, int64_t coffset, BlockInfo* bi,
                     std::vector<uint8_t>* mem, std::string* err) {
   uint8_t hdr[18];
@@ -235,18 +266,6 @@ bool inflate_block(const uint8_t* member, const BlockInfo& bi, uint8_t* dst, std
   return true;
 }
 
-struct RecHeader {
-  int32_t block_size;
-  int32_t ref_id;
-  int32_t pos;
-  uint8_t l_read_name;
-  uint8_t mapq;
-  uint16_t bin_;
-  uint16_t n_cigar;
-  uint16_t flag;
-  int32_t l_seq;
-};
-
 // Parse aux region for NM (integer) and SA (Z). Returns false on malformed.
 bool parse_aux(const uint8_t* p, const uint8_t* endp, int64_t* nm,
                const uint8_t** sa, int* sa_n) {
@@ -303,115 +322,6 @@ bool parse_aux(const uint8_t* p, const uint8_t* endp, int64_t* nm,
   return true;
 }
 
-// Streaming scanner: sliding window of blocks, parallel inflate, sequential
-// record parse with carry-over across window boundaries.
-struct Scanner {
-  BamCore* bc;
-  std::vector<uint8_t> buf;            // concatenated payloads (window)
-  // per appended block: (start offset in buf's global stream, coffset)
-  std::vector<int64_t> blk_gstart;
-  std::vector<int64_t> blk_coffset;
-  std::vector<int32_t> blk_usize;
-  int64_t gbase = 0;                   // global stream offset of buf[0]
-  int nthreads;
-
-  // clamp to the fixed errs[64] arrays in the scan phases — an
-  // uncapped nthreads from the public ABI would index past them
-  explicit Scanner(BamCore* b, int nt)
-      : bc(b), nthreads(nt < 1 ? 1 : (nt > 64 ? 64 : nt)) {}
-
-  uint64_t voffset_of(int64_t gpos) const {
-    // binary search blocks for the block containing gpos
-    size_t lo = 0, hi = blk_gstart.size();
-    while (hi - lo > 1) {
-      size_t mid = (lo + hi) / 2;
-      if (blk_gstart[mid] <= gpos) lo = mid; else hi = mid;
-    }
-    return (static_cast<uint64_t>(blk_coffset[lo]) << 16) |
-           static_cast<uint64_t>(gpos - blk_gstart[lo]);
-  }
-
-  void drop_consumed(int64_t consumed_gpos) {
-    // discard buffer bytes & block entries fully before consumed_gpos
-    int64_t drop = consumed_gpos - gbase;
-    if (drop <= 0) return;
-    buf.erase(buf.begin(), buf.begin() + drop);
-    gbase = consumed_gpos;
-    size_t k = 0;
-    while (k + 1 < blk_gstart.size() && blk_gstart[k + 1] <= gbase) k++;
-    if (k > 0) {
-      blk_gstart.erase(blk_gstart.begin(), blk_gstart.begin() + k);
-      blk_coffset.erase(blk_coffset.begin(), blk_coffset.begin() + k);
-      blk_usize.erase(blk_usize.begin(), blk_usize.begin() + k);
-    }
-  }
-};
-
-// Parse one record's fields and write them directly into the final
-// structure-of-arrays at global index gidx (disjoint per thread — no
-// staging, each output byte written exactly once).  The name/SA blob
-// BYTES are copied later (phase 3), once per-window prefix sums fix the
-// destination offsets; here only lengths and source offsets are stored:
-// name length goes to name_off[gidx + 1], the SA source offset (relative
-// to the window buffer) to sa_src[i].
-bool parse_record_direct(const uint8_t* base, int64_t off, BamCore* bc,
-                         int64_t gidx, int64_t* sa_src, std::string* err) {
-  int32_t block_size;
-  memcpy(&block_size, base + off, 4);
-  const uint8_t* r = base + off + 4;
-  int32_t ref_id, pos, l_seq;
-  uint16_t n_cigar, flag;
-  memcpy(&ref_id, r, 4);
-  memcpy(&pos, r + 4, 4);
-  uint8_t l_read_name = r[8];
-  uint8_t mapq = r[9];
-  memcpy(&n_cigar, r + 12, 2);
-  memcpy(&flag, r + 14, 2);
-  memcpy(&l_seq, r + 16, 4);
-  const uint8_t* name_p = r + 32;
-  const uint8_t* cig_p = name_p + l_read_name;
-  int64_t ref_len = 0;
-  // the aligned-base count and the largest gap between consecutive
-  // aligned ops, the gap measured as bc_del_gaps measures it
-  int64_t aligned = 0, max_gap = 0, prev_blk_end = -1;
-  for (int ci = 0; ci < n_cigar; ci++) {
-    uint32_t c;
-    memcpy(&c, cig_p + 4 * ci, 4);
-    if ((1u << (c & 0xF)) & kAligned) {
-      const int64_t bstart = pos + ref_len;
-      if (prev_blk_end >= 0) {
-        const int64_t gap = bstart - prev_blk_end;
-        max_gap = std::max(max_gap, gap < 0 ? -gap : gap);
-      }
-      prev_blk_end = bstart + (c >> 4);
-      aligned += c >> 4;
-    }
-    if ((1u << (c & 0xF)) & kRefConsuming) ref_len += c >> 4;
-  }
-  const uint8_t* aux_p = cig_p + 4 * n_cigar + (l_seq + 1) / 2 + l_seq;
-  const uint8_t* aux_end = r + block_size;
-  int64_t nmv = 0;
-  const uint8_t* sa = nullptr;
-  int sa_n = 0;
-  if (!parse_aux(aux_p, aux_end, &nmv, &sa, &sa_n)) {
-    *err = "malformed aux data";
-    return false;
-  }
-  bc->flag[gidx] = flag;
-  bc->ref_id[gidx] = ref_id;
-  bc->pos[gidx] = pos;
-  bc->end[gidx] = pos + ref_len;
-  bc->mapq[gidx] = mapq;
-  bc->qlen[gidx] = l_seq;
-  bc->nm[gidx] = nmv;
-  bc->aligned[gidx] = aligned;
-  bc->max_gap[gidx] = max_gap;
-  bc->name_off[gidx + 1] = l_read_name - 1;   // length; prefix-summed later
-  bc->sa_len[gidx] = sa_n;
-  *sa_src = sa ? sa - base : -1;
-  return true;
-}
-
 // Inflate members[i], described by infos[i], to out + dst[i] for every
 // member of infos, on nt threads: member i on thread i mod nt (nt 1: on
 // the calling thread).  On failure *err is the error of the first thread
@@ -448,89 +358,241 @@ bool inflate_members(const std::vector<BlockInfo>& infos,
   return true;
 }
 
-bool scan_file(BamCore* bc, int nthreads) {
-  FILE* fp = bc->fp;
-  fseek(fp, 0, SEEK_SET);
-  Scanner sc(bc, nthreads);
+// ---- BGZF windows: the scan's and the region decodes' one reader --------
 
-  // Window loop: read W block headers + compressed bytes, inflate in
-  // parallel, append to sc.buf, then parse as many whole records as the
-  // buffer allows.
-  const int W = 256;
-  std::vector<int64_t> sa_src;   // per-window SA source offsets (scratch)
+// One window of BGZF members read in file order, then inflated back to
+// back into `data` after the bytes it keeps from the window before.  The
+// member buffers and `data` keep their capacity from window to window.
+struct BgzfWindow {
   std::vector<BlockInfo> infos;
   std::vector<std::vector<uint8_t>> members;
+  std::vector<int64_t> dst;   // offset of each member's payload in data
+  dvec<uint8_t> data;
+};
+
+// Read up to W members from *next_c on, none that starts at or past end_c
+// but the first.  At the end of the file a scan's window (eof_err null)
+// ends cleanly, empty if no member was left; a region decode, which never
+// reads past its last member, fails there with eof_err.  A read failure
+// after the first member ends the window and goes to *deferred: a region
+// decode reports it only if it needs the bytes past the window, the scan
+// at once.  Returns false with *err set when no member could be read.
+bool read_window(FILE* fp, int64_t* next_c, int64_t end_c, int W,
+                 const char* eof_err, BgzfWindow* w, std::string* deferred,
+                 std::string* err) {
+  w->infos.clear();
+  if (static_cast<int>(w->members.size()) < W) w->members.resize(W);
+  while (w->infos.empty() ||
+         (*next_c < end_c && static_cast<int>(w->infos.size()) < W)) {
+    BlockInfo bi;
+    std::string e;
+    if (!read_block_seq(fp, *next_c, &bi, &w->members[w->infos.size()], &e)) {
+      if (e.empty()) {
+        if (!eof_err) break;
+        e = eof_err;
+      }
+      if (w->infos.empty()) { *err = e; return false; }
+      *deferred = e;
+      break;
+    }
+    *next_c = bi.coffset + bi.csize;
+    w->infos.push_back(bi);
+  }
+  return true;
+}
+
+// Inflate the window's members into w->data after its first `keep` bytes,
+// on as many of nthreads as the window has members; the payload bytes go
+// to *inflated, and to *pooled (when given) if more than one thread ran.
+bool inflate_window(BgzfWindow* w, int64_t keep, int nthreads,
+                    std::atomic<int64_t>* inflated,
+                    std::atomic<int64_t>* pooled, std::string* err) {
+  const size_t k = w->infos.size();
+  w->dst.resize(k);
+  int64_t total = 0;
+  for (size_t i = 0; i < k; i++) {
+    w->dst[i] = keep + total;
+    total += w->infos[i].usize;
+  }
+  w->data.resize(keep + total);
+  const int nt = static_cast<int>(std::min<size_t>(nthreads, k));
+  if (!inflate_members(w->infos, w->members, w->dst.data(), w->data.data(),
+                       nt, err)) {
+    return false;
+  }
+  inflated->fetch_add(total, std::memory_order_relaxed);
+  if (pooled && nt > 1) pooled->fetch_add(total, std::memory_order_relaxed);
+  return true;
+}
+
+// ---- the scan -----------------------------------------------------------
+
+// Streaming scanner: sliding window of blocks, parallel inflate, sequential
+// record parse with carry-over across window boundaries.
+struct Scanner {
+  BgzfWindow w;                        // w.data: the payload not yet parsed
+  // per appended block: (start offset in the global stream, coffset)
+  std::vector<int64_t> blk_gstart;
+  std::vector<int64_t> blk_coffset;
+  std::vector<int32_t> blk_usize;
+  int64_t gbase = 0;                   // global stream offset of w.data[0]
+
+  uint64_t voffset_of(int64_t gpos) const {
+    // binary search blocks for the block containing gpos
+    size_t lo = 0, hi = blk_gstart.size();
+    while (hi - lo > 1) {
+      size_t mid = (lo + hi) / 2;
+      if (blk_gstart[mid] <= gpos) lo = mid; else hi = mid;
+    }
+    return (static_cast<uint64_t>(blk_coffset[lo]) << 16) |
+           static_cast<uint64_t>(gpos - blk_gstart[lo]);
+  }
+
+  void drop_consumed(int64_t consumed_gpos) {
+    // discard buffer bytes & block entries fully before consumed_gpos
+    int64_t drop = consumed_gpos - gbase;
+    if (drop <= 0) return;
+    w.data.erase(w.data.begin(), w.data.begin() + drop);
+    gbase = consumed_gpos;
+    size_t k = 0;
+    while (k + 1 < blk_gstart.size() && blk_gstart[k + 1] <= gbase) k++;
+    if (k > 0) {
+      blk_gstart.erase(blk_gstart.begin(), blk_gstart.begin() + k);
+      blk_coffset.erase(blk_coffset.begin(), blk_coffset.begin() + k);
+      blk_usize.erase(blk_usize.begin(), blk_usize.begin() + k);
+    }
+  }
+};
+
+// Parse one record's fields and write them directly into the final
+// structure-of-arrays at global index gidx (disjoint per thread — no
+// staging, each output byte written exactly once).  The name/SA blob
+// BYTES are copied later (phase 3), once per-window prefix sums fix the
+// destination offsets; here only lengths and source offsets are stored:
+// name length goes to name_off[gidx + 1], the SA source offset (relative
+// to the window buffer) to sa_src[i].
+bool parse_record_direct(const uint8_t* base, int64_t off, BamCore* bc,
+                         int64_t gidx, int64_t* sa_src, std::string* err) {
+  int32_t block_size;
+  memcpy(&block_size, base + off, 4);
+  const uint8_t* r = base + off + 4;
+  int32_t ref_id, pos, l_seq;
+  uint16_t n_cigar, flag;
+  memcpy(&ref_id, r, 4);
+  memcpy(&pos, r + 4, 4);
+  uint8_t l_read_name = r[8];
+  uint8_t mapq = r[9];
+  memcpy(&n_cigar, r + 12, 2);
+  memcpy(&flag, r + 14, 2);
+  memcpy(&l_seq, r + 16, 4);
+  const uint8_t* name_p = r + 32;
+  const uint8_t* cig_p = name_p + l_read_name;
+  // the aligned-base count and the largest gap between aligned blocks:
+  // walk_aligned_blocks's blocks, walked inline in the scan's inner loop,
+  // each gap measured by block_gap as bc_del_gaps measures it
+  int64_t ref_len = 0;
+  int64_t aligned = 0, max_gap = 0, prev_blk_end = -1;
+  for (int ci = 0; ci < n_cigar; ci++) {
+    uint32_t c;
+    memcpy(&c, cig_p + 4 * ci, 4);
+    if ((1u << (c & 0xF)) & kAligned) {
+      const int64_t bstart = pos + ref_len;
+      if (prev_blk_end >= 0) {
+        max_gap = std::max(max_gap, block_gap(prev_blk_end, bstart));
+      }
+      prev_blk_end = bstart + (c >> 4);
+      aligned += c >> 4;
+    }
+    if ((1u << (c & 0xF)) & kRefConsuming) ref_len += c >> 4;
+  }
+  const uint8_t* aux_p = cig_p + 4 * n_cigar + (l_seq + 1) / 2 + l_seq;
+  const uint8_t* aux_end = r + block_size;
+  int64_t nmv = 0;
+  const uint8_t* sa = nullptr;
+  int sa_n = 0;
+  if (!parse_aux(aux_p, aux_end, &nmv, &sa, &sa_n)) {
+    *err = "malformed aux data";
+    return false;
+  }
+  bc->flag[gidx] = flag;
+  bc->ref_id[gidx] = ref_id;
+  bc->pos[gidx] = pos;
+  bc->end[gidx] = pos + ref_len;
+  bc->mapq[gidx] = mapq;
+  bc->qlen[gidx] = l_seq;
+  bc->nm[gidx] = nmv;
+  bc->aligned[gidx] = aligned;
+  bc->max_gap[gidx] = max_gap;
+  bc->name_off[gidx + 1] = l_read_name - 1;   // length; prefix-summed later
+  bc->sa_len[gidx] = sa_n;
+  *sa_src = sa ? sa - base : -1;
+  return true;
+}
+
+bool scan_file(BamCore* bc) {
+  FILE* fp = bc->fp;
+  fseek(fp, 0, SEEK_SET);
+  Scanner sc;
+  // bc->nthreads is at most 64, the size of the errs arrays below
+  const int nthreads = bc->nthreads;
+
+  // Window loop: read W members, inflate them in parallel after the bytes
+  // not yet parsed, then parse as many whole records as the buffer allows.
+  const int W = 256;
+  std::vector<int64_t> sa_src;   // per-window SA source offsets (scratch)
   int64_t coffset = 0;
   bool header_parsed = false;
   int64_t parse_gpos = 0;   // global position of next unparsed byte
   bc->name_off.push_back(0);
 
   auto append_window = [&]() -> bool {
-    infos.clear();
-    members.clear();
-    for (int i = 0; i < W; i++) {
-      BlockInfo bi;
-      std::vector<uint8_t> mem;
-      if (!read_block_seq(fp, coffset, &bi, &mem, &bc->error)) {
-        if (!bc->error.empty()) return false;
-        break;  // EOF
-      }
-      coffset = bi.coffset + bi.csize;
-      infos.push_back(bi);
-      members.push_back(std::move(mem));
-    }
-    if (infos.empty()) return true;  // EOF, nothing appended
-    // offsets in buf
-    size_t old_size = sc.buf.size();
-    int64_t total = 0;
-    for (auto& bi : infos) total += bi.usize;
-    sc.buf.resize(old_size + total);
-    std::vector<int64_t> dst_off(infos.size());
-    int64_t acc = old_size;
-    for (size_t i = 0; i < infos.size(); i++) {
-      dst_off[i] = acc;
-      sc.blk_gstart.push_back(sc.gbase + acc);
-      sc.blk_coffset.push_back(infos[i].coffset);
-      sc.blk_usize.push_back(infos[i].usize);
-      acc += infos[i].usize;
-    }
-    // parallel inflate
-    if (!inflate_members(infos, members, dst_off.data(), sc.buf.data(),
-                         sc.nthreads, &bc->error)) {
+    std::string deferred;
+    if (!read_window(fp, &coffset, std::numeric_limits<int64_t>::max(), W,
+                     nullptr, &sc.w, &deferred, &bc->error)) {
       return false;
     }
-    g_scan_inflated.fetch_add(total, std::memory_order_relaxed);
+    if (!deferred.empty()) { bc->error = deferred; return false; }
+    if (!inflate_window(&sc.w, sc.w.data.size(), nthreads, &g_scan_inflated,
+                        nullptr, &bc->error)) {
+      return false;
+    }
+    for (size_t i = 0; i < sc.w.infos.size(); i++) {
+      sc.blk_gstart.push_back(sc.gbase + sc.w.dst[i]);
+      sc.blk_coffset.push_back(sc.w.infos[i].coffset);
+      sc.blk_usize.push_back(sc.w.infos[i].usize);
+    }
     return true;
   };
 
+  dvec<uint8_t>& buf = sc.w.data;
   while (true) {
-    size_t before = sc.buf.size();
+    size_t before = buf.size();
     if (!append_window()) return false;
-    if (sc.buf.size() == before) break;  // EOF
+    if (buf.size() == before) break;  // EOF
 
     // parse BAM header once
     if (!header_parsed) {
-      if (sc.buf.size() < 12) continue;
-      if (memcmp(sc.buf.data(), "BAM\x01", 4) != 0) {
+      if (buf.size() < 12) continue;
+      if (memcmp(buf.data(), "BAM\x01", 4) != 0) {
         bc->error = "not a BAM file";
         return false;
       }
       int32_t l_text;
-      memcpy(&l_text, sc.buf.data() + 4, 4);
+      memcpy(&l_text, buf.data() + 4, 4);
       int64_t need = 8 + static_cast<int64_t>(l_text) + 4;
-      if (static_cast<int64_t>(sc.buf.size()) < need) continue;
+      if (static_cast<int64_t>(buf.size()) < need) continue;
       int32_t n_ref;
-      memcpy(&n_ref, sc.buf.data() + 8 + l_text, 4);
+      memcpy(&n_ref, buf.data() + 8 + l_text, 4);
       int64_t p = 12 + l_text;
       bool ok = true;
       for (int i = 0; i < n_ref; i++) {
-        if (p + 4 > static_cast<int64_t>(sc.buf.size())) { ok = false; break; }
+        if (p + 4 > static_cast<int64_t>(buf.size())) { ok = false; break; }
         int32_t l_name;
-        memcpy(&l_name, sc.buf.data() + p, 4);
-        if (p + 8 + l_name > static_cast<int64_t>(sc.buf.size())) { ok = false; break; }
-        bc->ref_names.emplace_back(reinterpret_cast<char*>(sc.buf.data() + p + 4), l_name - 1);
+        memcpy(&l_name, buf.data() + p, 4);
+        if (p + 8 + l_name > static_cast<int64_t>(buf.size())) { ok = false; break; }
+        bc->ref_names.emplace_back(reinterpret_cast<char*>(buf.data() + p + 4), l_name - 1);
         int32_t l_ref;
-        memcpy(&l_ref, sc.buf.data() + p + 4 + l_name, 4);
+        memcpy(&l_ref, buf.data() + p + 4 + l_name, 4);
         bc->ref_lens.push_back(l_ref);
         p += 8 + l_name;
       }
@@ -548,9 +610,9 @@ bool scan_file(BamCore* bc, int nthreads) {
     std::vector<uint64_t> rec_voffs;
     while (true) {
       int64_t off = parse_gpos - sc.gbase;
-      if (off + 4 > static_cast<int64_t>(sc.buf.size())) break;
+      if (off + 4 > static_cast<int64_t>(buf.size())) break;
       int32_t block_size;
-      memcpy(&block_size, sc.buf.data() + off, 4);
+      memcpy(&block_size, buf.data() + off, 4);
       // BAM fixed fields alone are 32 bytes; a smaller (or negative)
       // block_size is corruption — without this check a negative value
       // loops forever or walks the cursor out of the buffer
@@ -558,7 +620,7 @@ bool scan_file(BamCore* bc, int nthreads) {
         bc->error = "corrupt BAM: record block_size < 32";
         return false;
       }
-      if (off + 4 + block_size > static_cast<int64_t>(sc.buf.size())) break;
+      if (off + 4 + block_size > static_cast<int64_t>(buf.size())) break;
       rec_offs.push_back(off);
       rec_voffs.push_back(sc.voffset_of(parse_gpos));
       parse_gpos += 4 + block_size;
@@ -585,12 +647,12 @@ bool scan_file(BamCore* bc, int nthreads) {
       ensure_size(bc->aligned, new_n);
       ensure_size(bc->max_gap, new_n);
       sa_src.resize(n);
-      int nt = sc.nthreads;
+      int nt = nthreads;
       if (nt > static_cast<int>(n)) nt = 1;
       std::vector<std::thread> workers;
       std::string errs[64];
       size_t chunk = (n + nt - 1) / nt;
-      const uint8_t* base = sc.buf.data();
+      const uint8_t* base = buf.data();
       for (int t = 0; t < nt; t++) {
         workers.emplace_back([&, t]() {
           size_t lo = t * chunk;
@@ -657,7 +719,7 @@ bool scan_file(BamCore* bc, int nthreads) {
     return false;
   }
   if (parse_gpos - sc.gbase <
-      static_cast<int64_t>(sc.buf.size())) {
+      static_cast<int64_t>(buf.size())) {
     bc->error = "truncated BAM: partial record at end of file";
     return false;
   }
@@ -665,63 +727,6 @@ bool scan_file(BamCore* bc, int nthreads) {
 }
 
 // ---- region decode ------------------------------------------------------
-
-// One window of a region decode: whole BGZF members read in file order,
-// then inflated back to back into `data`.  The member buffers and `data`
-// keep their capacity from window to window of one decode.
-struct DecodeWindow {
-  std::vector<BlockInfo> infos;
-  std::vector<std::vector<uint8_t>> members;
-  std::vector<int64_t> dst;   // offset of each member's payload in data
-  dvec<uint8_t> data;
-};
-
-// Read up to W members from *next_c on, none that starts at or past end_c
-// (the first always).  A read failure after the first member ends the
-// window and goes to *deferred: the caller reports it only if it needs the
-// bytes past the window.  Returns false with *err set when no member could
-// be read.
-bool read_window(FILE* fp, int64_t* next_c, int64_t end_c, int W,
-                 DecodeWindow* w, std::string* deferred, std::string* err) {
-  w->infos.clear();
-  if (static_cast<int>(w->members.size()) < W) w->members.resize(W);
-  while (w->infos.empty() ||
-         (*next_c < end_c && static_cast<int>(w->infos.size()) < W)) {
-    BlockInfo bi;
-    std::string e;
-    if (!read_block_seq(fp, *next_c, &bi, &w->members[w->infos.size()], &e)) {
-      if (e.empty()) e = "unexpected EOF in region decode";
-      if (w->infos.empty()) { *err = e; return false; }
-      *deferred = e;
-      break;
-    }
-    *next_c = bi.coffset + bi.csize;
-    w->infos.push_back(bi);
-  }
-  return true;
-}
-
-// Inflate the window's members into w->data after its first `keep` bytes,
-// on as many of the handle's nthreads as the window has members.
-bool inflate_window(DecodeWindow* w, int64_t keep, int nthreads,
-                    std::string* err) {
-  const size_t k = w->infos.size();
-  w->dst.resize(k);
-  int64_t total = 0;
-  for (size_t i = 0; i < k; i++) {
-    w->dst[i] = keep + total;
-    total += w->infos[i].usize;
-  }
-  w->data.resize(keep + total);
-  const int nt = static_cast<int>(std::min<size_t>(nthreads, k));
-  if (!inflate_members(w->infos, w->members, w->dst.data(), w->data.data(),
-                       nt, err)) {
-    return false;
-  }
-  g_decode_inflated.fetch_add(total, std::memory_order_relaxed);
-  if (nt > 1) g_decode_pooled.fetch_add(total, std::memory_order_relaxed);
-  return true;
-}
 
 // Callback-driven decode of records [lo, hi) using stored voffsets.
 // The members from the one that holds record lo's first byte to the one
@@ -752,14 +757,17 @@ bool decode_range(BamCore* bc, int64_t lo, int64_t hi, F&& fn) {
                                         : std::numeric_limits<int64_t>::max();
   }
   const int W = std::min(256, 16 * bc->nthreads);
-  DecodeWindow w;
+  BgzfWindow w;
   std::string deferred;
   int64_t keep = 0;   // bytes of the window before its members' payload
   fseek(fp, next_c, SEEK_SET);
   auto next_window = [&]() -> bool {
     if (!deferred.empty()) { bc->error = deferred; return false; }
-    return read_window(fp, &next_c, end_c, W, &w, &deferred, &bc->error) &&
-           inflate_window(&w, keep, bc->nthreads, &bc->error);
+    return read_window(fp, &next_c, end_c, W,
+                       "unexpected EOF in region decode", &w, &deferred,
+                       &bc->error) &&
+           inflate_window(&w, keep, bc->nthreads, &g_decode_inflated,
+                          &g_decode_pooled, &bc->error);
   };
   if (!next_window()) return false;
   for (int64_t i = lo; i < hi; i++) {
@@ -820,6 +828,42 @@ bool decode_where(BamCore* bc, int64_t lo, int64_t hi, P&& walk, F&& fn) {
   return ok;
 }
 
+// A record that counts toward the coverage of a region that starts at
+// start: it ends past start and passes the flag and mapping-quality gates.
+bool counts_toward(const BamCore* bc, int64_t i, int64_t start,
+                   int flag_exclude, int min_mapq) {
+  return bc->end[i] > start && !(bc->flag[i] & flag_exclude) &&
+         bc->mapq[i] >= min_mapq;
+}
+
+// Call fn(a, b) for the bases [a, b) of record i (body r) in [start, stop)
+// that count toward coverage: each aligned block clipped to the region,
+// or, under a quality threshold where the record stores qualities, each
+// base at or above it on its own.
+template <typename F>
+void covered_bases(const BamCore* bc, int64_t i, const uint8_t* r,
+                   int64_t start, int64_t stop, int qual_threshold, F&& fn) {
+  uint16_t n_cigar;
+  memcpy(&n_cigar, r + 12, 2);
+  int32_t l_seq;
+  memcpy(&l_seq, r + 16, 4);
+  const uint8_t* cig = r + 32 + r[8];
+  const uint8_t* qual = cig + 4 * n_cigar + (l_seq + 1) / 2;
+  const bool gated = qual_threshold > 0 && l_seq > 0 && qual[0] != 0xFF;
+  walk_aligned_blocks(
+      cig, n_cigar, bc->pos[i],
+      [&](int64_t rstart, int64_t rend, int64_t qoff, int64_t) {
+        const int64_t a = std::max(rstart, start), b = std::min(rend, stop);
+        if (!gated) {
+          if (b > a) fn(a, b);
+          return;
+        }
+        for (int64_t k = a; k < b; k++) {
+          if (qual[qoff + (k - rstart)] >= qual_threshold) fn(k, k + 1);
+        }
+      });
+}
+
 // ---- SA-tag chimera assembly --------------------------------------------
 
 // Generic CIGAR span decode over an SA-tag cigar string:
@@ -868,7 +912,7 @@ struct SaView {
   }
 };
 
-bool parse_sa_entry(const BamCore* bc, const char* s, const char* end,
+bool parse_sa_entry(const char* s, const char* end,
                     int64_t read_length,
                     const std::unordered_map<std::string, int32_t>& ref_ids,
                     ChimAln* out) {
@@ -1059,22 +1103,71 @@ bool load_cache(BamCore* bc, const char* cache_path) {
   return ok;
 }
 
+// A handle on path with its thread count and its file open, or with its
+// error set.
+BamCore* open_handle(const char* path, int nthreads) {
+  auto* bc = new BamCore();
+  bc->path = path;
+  bc->nthreads = nthreads < 1 ? 1 : (nthreads > 64 ? 64 : nthreads);
+  bc->fp = fopen(path, "rb");
+  if (!bc->fp) bc->error = "cannot open file";
+  return bc;
+}
+
+bool scan(BamCore* bc) {
+  if (scan_file(bc)) return true;
+  if (bc->error.empty()) bc->error = "scan failed";
+  return false;
+}
+
+// Run fn(lo, hi) over [0, n) in contiguous chunks, one a thread, on at
+// most nthreads threads (one: on the calling thread).
+template <typename F>
+void run_chunks(int64_t n, int nthreads, F&& fn) {
+  if (n <= 0) return;
+  const int nt = static_cast<int>(
+      std::min<int64_t>(nthreads < 1 ? 1 : (nthreads > 64 ? 64 : nthreads), n));
+  if (nt <= 1) {
+    fn(int64_t{0}, n);
+    return;
+  }
+  std::vector<std::thread> threads;
+  const int64_t chunk = (n + nt - 1) / nt;
+  for (int64_t lo = 0; lo < n; lo += chunk) {
+    threads.emplace_back(fn, lo, std::min(lo + chunk, n));
+  }
+  for (auto& th : threads) th.join();
+}
+
+// For each of n_aln alignments, the first interval of the table (ic, is,
+// ie; n_int rows, in storage order) that it overlaps on its chromosome,
+// or -1.
+std::vector<int32_t> first_overlaps(int64_t n_aln, const int32_t* chrom,
+                                    const int64_t* r1, const int64_t* r2,
+                                    int32_t n_int, const int32_t* ic,
+                                    const int64_t* is, const int64_t* ie,
+                                    int nthreads) {
+  std::vector<int32_t> io(static_cast<size_t>(n_aln > 0 ? n_aln : 1), -1);
+  run_chunks(n_aln, nthreads, [&](int64_t lo, int64_t hi) {
+    for (int64_t k = lo; k < hi; k++) {
+      for (int32_t l = 0; l < n_int; l++) {
+        if (chrom[k] == ic[l] && r1[k] <= ie[l] && is[l] <= r2[k]) {
+          io[k] = l;
+          break;
+        }
+      }
+    }
+  });
+  return io;
+}
+
 }  // namespace
 
 extern "C" {
 
 BamCore* bc_open(const char* path, int nthreads) {
-  auto* bc = new BamCore();
-  bc->path = path;
-  bc->nthreads = nthreads < 1 ? 1 : (nthreads > 64 ? 64 : nthreads);
-  bc->fp = fopen(path, "rb");
-  if (!bc->fp) {
-    bc->error = "cannot open file";
-    return bc;
-  }
-  if (!scan_file(bc, nthreads)) {
-    if (bc->error.empty()) bc->error = "scan failed";
-  }
+  BamCore* bc = open_handle(path, nthreads);
+  if (bc->fp) scan(bc);
   return bc;
 }
 
@@ -1083,23 +1176,13 @@ BamCore* bc_open(const char* path, int nthreads) {
 // The BGZF file stays open either way (region re-decode reads it).
 BamCore* bc_open_cached(const char* path, const char* cache_path,
                         int nthreads) {
-  auto* bc = new BamCore();
-  bc->path = path;
-  bc->nthreads = nthreads < 1 ? 1 : (nthreads > 64 ? 64 : nthreads);
-  bc->fp = fopen(path, "rb");
-  if (!bc->fp) {
-    bc->error = "cannot open file";
-    return bc;
-  }
+  BamCore* bc = open_handle(path, nthreads);
+  if (!bc->fp) return bc;
   if (load_cache(bc, cache_path)) {
     bc->from_cache = true;
-    return bc;
+  } else if (scan(bc)) {
+    save_cache(bc, cache_path);
   }
-  if (!scan_file(bc, nthreads)) {
-    if (bc->error.empty()) bc->error = "scan failed";
-    return bc;
-  }
-  save_cache(bc, cache_path);
   return bc;
 }
 
@@ -1145,11 +1228,8 @@ const int64_t* bc_sa_len(BamCore* bc) { return bc->sa_len.data(); }
 
 // Open-addressing name->slot table (FNV-1a, linear probing, pow2 cap
 // >= 2x the worst-case key count so the load factor stays <= 0.5, no
-// growth path needed).  The std::unordered_map probe dominated the
-// slot/split phase at 1.5M chimeric names (round-5 profile): per-node
-// allocations + pointer-chased buckets vs one flat cache line here.
-// Keys are views into the stable name blob, so entries store raw
-// (ptr, len).
+// growth path needed): one flat array, no allocation a key.  Keys are
+// views into the stable name blob, so entries store raw (ptr, len).
 struct NameSlotTable {
   struct Entry { const char* p; uint32_t len; int32_t slot; };
   std::vector<Entry> tab;
@@ -1210,8 +1290,7 @@ int64_t bc_parse_sa(BamCore* bc) {
   for (size_t i = 0; i < bc->ref_names.size(); i++) {
     ref_ids[bc->ref_names[i]] = static_cast<int32_t>(i);
   }
-  // string_view keys into the (stable) name blob: no per-record string
-  // construction (that copy was ~40% of the pass at 1.5M chimeric reads)
+  // string_view keys into the (stable) name blob: no string a record
   auto name_of = [&](int64_t i) {
     return std::string_view(
         reinterpret_cast<const char*>(bc->name_blob.data()) + bc->name_off[i],
@@ -1277,16 +1356,13 @@ int64_t bc_parse_sa(BamCore* bc) {
         } else {
           slot = *sl;
         }
-        // a read has at most ONE primary record (flag<256: secondary
-        // 0x100 and supplementary 0x800 both exceed it), so capturing
-        // its qlen here — when the primary carries the SA tag, as
-        // aligners emit for split reads — is exactly the separate
-        // whole-BAM read_len pass's result, which then only runs for
-        // slots this pass could not resolve (usually none).  First-seen
-        // wins WITHIN the chunk too (the cross-part merge keeps the
-        // first part's value), so even a malformed BAM with duplicate
-        // primary records keeps the sequential scan's deterministic
-        // first-in-file-order result regardless of thread count.
+        // a read has at most one primary record (flag < 256: secondary
+        // 0x100 and supplementary 0x800 both exceed it), so its qlen is
+        // taken here when the primary carries the SA tag, as aligners
+        // emit for split reads; the whole-BAM pass below runs only for
+        // slots left unresolved.  First seen wins within a chunk as the
+        // merge does across them, so a BAM with duplicate primary
+        // records gives the first in file order at any thread count.
         if (bc->flag[i] < 256 && sp.rlen[slot] < 0) {
           sp.rlen[slot] = bc->qlen[i];
         }
@@ -1385,7 +1461,7 @@ int64_t bc_parse_sa(BamCore* bc) {
       bool valid = true;
       for (const SaView& v : sa_sets[s]) {
         ChimAln a;
-        if (!parse_sa_entry(bc, v.p, v.p + v.n, read_len[s], ref_ids, &a)) {
+        if (!parse_sa_entry(v.p, v.p + v.n, read_len[s], ref_ids, &a)) {
           valid = false;
           break;
         }
@@ -1482,54 +1558,17 @@ int64_t bc_coverage_sum(BamCore* bc, int64_t lo, int64_t hi,
   // records that straddle an end are walked; a quality threshold walks
   // them all.
   int64_t total = 0;
-  auto add = [&](int64_t i, const uint8_t* r, int32_t bsz) {
-    (void)bsz;
-    if (bc->end[i] <= start) return;
-    uint16_t fl;
-    memcpy(&fl, r + 14, 2);
-    if (fl & flag_exclude) return;
-    if (r[9] < min_mapq) return;
-    uint16_t n_cigar;
-    memcpy(&n_cigar, r + 12, 2);
-    int32_t l_seq;
-    memcpy(&l_seq, r + 16, 4);
-    const uint8_t* cig = r + 32 + r[8];
-    const uint8_t* qual = cig + 4 * n_cigar + (l_seq + 1) / 2;
-    int64_t rpos = bc->pos[i];
-    int64_t qpos = 0;
-    for (int ci = 0; ci < n_cigar; ci++) {
-      uint32_t c;
-      memcpy(&c, cig + 4 * ci, 4);
-      uint32_t op = c & 0xF;
-      int64_t n = c >> 4;
-      if ((1u << op) & kAligned) {
-        int64_t a = rpos > start ? rpos : start;
-        int64_t b = (rpos + n) < stop ? (rpos + n) : stop;
-        if (b > a) {
-          if (qual_threshold > 0 && l_seq > 0 && qual[0] != 0xFF) {
-            for (int64_t k = a; k < b; k++) {
-              if (qual[qpos + (k - rpos)] >= qual_threshold) total++;
-            }
-          } else {
-            total += b - a;
-          }
-        }
-        rpos += n;
-        qpos += n;
-      } else if ((1u << op) & kRefConsuming) {
-        rpos += n;
-      } else if (op == 1 || op == 4) {  // I, S consume query
-        qpos += n;
-      }
-    }
+  auto counted = [&](int64_t i) {
+    return counts_toward(bc, i, start, flag_exclude, min_mapq);
+  };
+  auto add = [&](int64_t i, const uint8_t* r, int32_t) {
+    if (!counted(i)) return;
+    covered_bases(bc, i, r, start, stop, qual_threshold,
+                  [&](int64_t a, int64_t b) { total += b - a; });
   };
   if (qual_threshold > 0) {
     return decode_range(bc, lo, hi, add) ? total : -1;
   }
-  auto counted = [&](int64_t i) {
-    return bc->end[i] > start && !(bc->flag[i] & flag_exclude) &&
-           bc->mapq[i] >= min_mapq;
-  };
   auto inside = [&](int64_t i) {
     return bc->pos[i] >= start && bc->end[i] <= stop;
   };
@@ -1546,43 +1585,12 @@ int bc_coverage_profile(BamCore* bc, int64_t lo, int64_t hi,
                         int qual_threshold, int flag_exclude, int min_mapq,
                         int64_t* out) {
   memset(out, 0, sizeof(int64_t) * (stop - start));
-  bool ok = decode_range(bc, lo, hi, [&](int64_t i, const uint8_t* r, int32_t bsz) {
-    (void)bsz;
-    if (bc->end[i] <= start) return;
-    uint16_t fl;
-    memcpy(&fl, r + 14, 2);
-    if (fl & flag_exclude) return;
-    if (r[9] < min_mapq) return;
-    uint16_t n_cigar;
-    memcpy(&n_cigar, r + 12, 2);
-    int32_t l_seq;
-    memcpy(&l_seq, r + 16, 4);
-    const uint8_t* cig = r + 32 + r[8];
-    const uint8_t* qual = cig + 4 * n_cigar + (l_seq + 1) / 2;
-    int64_t rpos = bc->pos[i];
-    int64_t qpos = 0;
-    for (int ci = 0; ci < n_cigar; ci++) {
-      uint32_t c;
-      memcpy(&c, cig + 4 * ci, 4);
-      uint32_t op = c & 0xF;
-      int64_t n = c >> 4;
-      if ((1u << op) & kAligned) {
-        int64_t a = rpos > start ? rpos : start;
-        int64_t b = (rpos + n) < stop ? (rpos + n) : stop;
-        for (int64_t k = a; k < b; k++) {
-          if (qual_threshold > 0 && l_seq > 0 && qual[0] != 0xFF) {
-            if (qual[qpos + (k - rpos)] < qual_threshold) continue;
-          }
-          out[k - start]++;
-        }
-        rpos += n;
-        qpos += n;
-      } else if ((1u << op) & kRefConsuming) {
-        rpos += n;
-      } else if (op == 1 || op == 4) {
-        qpos += n;
-      }
-    }
+  bool ok = decode_range(bc, lo, hi, [&](int64_t i, const uint8_t* r, int32_t) {
+    if (!counts_toward(bc, i, start, flag_exclude, min_mapq)) return;
+    covered_bases(bc, i, r, start, stop, qual_threshold,
+                  [&](int64_t a, int64_t b) {
+                    for (int64_t k = a; k < b; k++) out[k - start]++;
+                  });
   });
   return ok ? 0 : -1;
 }
@@ -1597,37 +1605,21 @@ int64_t bc_del_gaps(BamCore* bc, int64_t lo, int64_t hi,
            bc->max_gap[i] > min_del_len;
   };
   bool ok = decode_where(bc, lo, hi, walk, [&](int64_t i, const uint8_t* r,
-                                               int32_t bsz) {
-    (void)bsz;
+                                               int32_t) {
     uint16_t n_cigar;
     memcpy(&n_cigar, r + 12, 2);
-    const uint8_t* cig = r + 32 + r[8];
-    // walk blocks: aligned (M/=/X) runs, split at D/N
-    int64_t rpos = bc->pos[i];
-    int64_t blk_first = -1, prev_blk_end = -1, blk_last = -1;
-    size_t first_gap_row = bc->gaps.size();
-    for (int ci = 0; ci < n_cigar; ci++) {
-      uint32_t c;
-      memcpy(&c, cig + 4 * ci, 4);
-      uint32_t op = c & 0xF;
-      int64_t n = c >> 4;
-      if ((1u << op) & kAligned) {
-        int64_t bstart = rpos, bend = rpos + n;
-        if (blk_first < 0) blk_first = bstart;
-        if (prev_blk_end >= 0) {
-          int64_t gap = bstart - prev_blk_end;
-          if (gap > min_del_len || gap < -min_del_len) {
-            bc->gaps.push_back({i, bstart, prev_blk_end, 0, 0});
+    int64_t blk_first = -1, blk_last = -1;
+    const size_t first_row = bc->gaps.size();
+    walk_aligned_blocks(
+        r + 32 + r[8], n_cigar, bc->pos[i],
+        [&](int64_t rstart, int64_t rend, int64_t, int64_t prev_end) {
+          if (blk_first < 0) blk_first = rstart;
+          if (prev_end >= 0 && block_gap(prev_end, rstart) > min_del_len) {
+            bc->gaps.push_back({i, rstart, prev_end, 0, 0});
           }
-        }
-        prev_blk_end = bend;
-        blk_last = bend;
-        rpos += n;
-      } else if ((1u << op) & kRefConsuming) {
-        rpos += n;
-      }
-    }
-    for (size_t k = first_gap_row; k < bc->gaps.size(); k++) {
+          blk_last = rend;
+        });
+    for (size_t k = first_row; k < bc->gaps.size(); k++) {
       bc->gaps[k].blk_first = blk_first;
       bc->gaps[k].blk_last = blk_last;
     }
@@ -1666,9 +1658,7 @@ void bc_pack_pairs(int64_t n_pairs, const int64_t* pi,
     mq = mq < 0 ? 0 : (mq > 255 ? 255 : mq);
     return ((chrom[k] + 1) << 9) | (mq << 1) | (strand[k] > 0 ? 1 : 0);
   };
-  int nt = nthreads < 1 ? 1 : (nthreads > 64 ? 64 : nthreads);
-  if (static_cast<int64_t>(nt) > n_out) nt = n_out > 0 ? static_cast<int>(n_out) : 1;
-  auto work = [&](int64_t lo, int64_t hi) {
+  run_chunks(n_out, nthreads, [&](int64_t lo, int64_t hi) {
     int64_t body = hi < n_pairs ? hi : n_pairs;
     for (int64_t p = lo; p < body; p++) {
       int64_t i = pi[p], j = i + 1;
@@ -1687,20 +1677,7 @@ void bc_pack_pairs(int64_t n_pairs, const int64_t* pi,
       out_r2j[p] = 0;
       out_meta[p] = 0;
     }
-  };
-  if (nt <= 1) {
-    work(0, n_out);
-    return;
-  }
-  std::vector<std::thread> threads;
-  int64_t chunk = (n_out + nt - 1) / nt;
-  for (int t = 0; t < nt; t++) {
-    int64_t lo = t * chunk;
-    int64_t hi = lo + chunk < n_out ? lo + chunk : n_out;
-    if (lo >= hi) break;
-    threads.emplace_back(work, lo, hi);
-  }
-  for (auto& th : threads) th.join();
+  });
 }
 
 // v2: interval-RESOLVED pack (ops/scoring.py PACKED2_COL_ORDER: qgap,
@@ -1721,21 +1698,9 @@ void bc_pack_pairs2(int64_t n_pairs, const int64_t* pi,
                     const int64_t* ie, int64_t n_out, int nthreads,
                     int32_t* out_qgap, int32_t* out_r2i, int32_t* out_r1j,
                     int32_t* out_meta) {
-  int nt = nthreads < 1 ? 1 : (nthreads > 64 ? 64 : nthreads);
-  std::vector<int32_t> io(static_cast<size_t>(n_aln > 0 ? n_aln : 1), -1);
-  auto io_work = [&](int64_t lo, int64_t hi) {
-    for (int64_t k = lo; k < hi; k++) {
-      int32_t found = -1;
-      for (int32_t l = 0; l < n_int; l++) {
-        if (chrom[k] == ic[l] && r1[k] <= ie[l] && is[l] <= r2[k]) {
-          found = l;
-          break;
-        }
-      }
-      io[k] = found;
-    }
-  };
-  auto pack_work = [&](int64_t lo, int64_t hi) {
+  const std::vector<int32_t> io = first_overlaps(
+      n_aln, chrom, r1, r2, n_int, ic, is, ie, nthreads);
+  run_chunks(n_out, nthreads, [&](int64_t lo, int64_t hi) {
     int64_t body = hi < n_pairs ? hi : n_pairs;
     for (int64_t p = lo; p < body; p++) {
       int64_t i = pi[p], j = i + 1;
@@ -1755,27 +1720,7 @@ void bc_pack_pairs2(int64_t n_pairs, const int64_t* pi,
       out_r1j[p] = 0;
       out_meta[p] = 0;
     }
-  };
-  auto run = [&](auto& fn, int64_t n) {
-    if (n <= 0) return;
-    int t_here = nt;
-    if (static_cast<int64_t>(t_here) > n) t_here = static_cast<int>(n);
-    if (t_here <= 1) {
-      fn(0, n);
-      return;
-    }
-    std::vector<std::thread> threads;
-    int64_t chunk = (n + t_here - 1) / t_here;
-    for (int t = 0; t < t_here; t++) {
-      int64_t lo = t * chunk;
-      int64_t hi = lo + chunk < n ? lo + chunk : n;
-      if (lo >= hi) break;
-      threads.emplace_back(fn, lo, hi);
-    }
-    for (auto& th : threads) th.join();
-  };
-  run(io_work, n_aln);
-  run(pack_work, n_out);
+  });
 }
 
 // v3: fully RESOLVED pack (ops/scoring.py PACKED3_COL_ORDER: qgap, grr,
@@ -1798,21 +1743,9 @@ void bc_pack_pairs3(int64_t n_pairs, const int64_t* pi,
                     int64_t n_out, int nthreads,
                     int32_t* out_qgap, int32_t* out_grr,
                     int32_t* out_meta) {
-  int nt = nthreads < 1 ? 1 : (nthreads > 64 ? 64 : nthreads);
-  std::vector<int32_t> io(static_cast<size_t>(n_aln > 0 ? n_aln : 1), -1);
-  auto io_work = [&](int64_t lo, int64_t hi) {
-    for (int64_t k = lo; k < hi; k++) {
-      int32_t found = -1;
-      for (int32_t l = 0; l < n_int; l++) {
-        if (chrom[k] == ic[l] && r1[k] <= ie[l] && is[l] <= r2[k]) {
-          found = l;
-          break;
-        }
-      }
-      io[k] = found;
-    }
-  };
-  auto pack_work = [&](int64_t lo, int64_t hi) {
+  const std::vector<int32_t> io = first_overlaps(
+      n_aln, chrom, r1, r2, n_int, ic, is, ie, nthreads);
+  run_chunks(n_out, nthreads, [&](int64_t lo, int64_t hi) {
     int64_t body = hi < n_pairs ? hi : n_pairs;
     for (int64_t p = lo; p < body; p++) {
       int64_t i = pi[p], j = i + 1;
@@ -1830,27 +1763,7 @@ void bc_pack_pairs3(int64_t n_pairs, const int64_t* pi,
       out_grr[p] = 0;
       out_meta[p] = 0;
     }
-  };
-  auto run = [&](auto& fn, int64_t n) {
-    if (n <= 0) return;
-    int t_here = nt;
-    if (static_cast<int64_t>(t_here) > n) t_here = static_cast<int>(n);
-    if (t_here <= 1) {
-      fn(0, n);
-      return;
-    }
-    std::vector<std::thread> threads;
-    int64_t chunk = (n + t_here - 1) / t_here;
-    for (int t = 0; t < t_here; t++) {
-      int64_t lo = t * chunk;
-      int64_t hi = lo + chunk < n ? lo + chunk : n;
-      if (lo >= hi) break;
-      threads.emplace_back(fn, lo, hi);
-    }
-    for (auto& th : threads) th.join();
-  };
-  run(io_work, n_aln);
-  run(pack_work, n_out);
+  });
 }
 
 int64_t bc_cluster_firstfit(int64_t n, const int64_t* p1, const int64_t* p2,

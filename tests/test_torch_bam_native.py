@@ -1,7 +1,8 @@
-"""The port's native region decodes against the reference package's
-pure-Python reader, at 1, 2 and 8 inflate threads; the sums and gap
-searches that the scan's columns answer against the reference package's
-readers and the port's own full decode.
+"""The port's native BAM core held by its outputs: its scan's record
+table and the chimeras its SA parse assembles, and its region decodes,
+against the reference package's pure-Python reader at 1, 2 and 8
+threads; the sums and gap searches that the scan's columns answer
+against the reference package's readers and the port's own full decode.
 
 The fixture's payload is rewritten as BGZF members of BLOCK bytes, so
 records straddle members and windows, and a contig spans more than two
@@ -74,6 +75,7 @@ def _fixture(tmp_path, n=600, seed=21):
     add("gap600", 0, "chr2", 1_600_000, 60, "100M600D100M5D100M", 300)
     add("gap700n", 0, "chr2", 1_600_500, 60, "100M700N100M", 200)
     add("gap0", 0, "chr2", 1_601_000, 60, "100M10I100M", 210)
+    recs += _split_reads(random.Random(seed + 1))
     src = str(tmp_path / "src.bam")
     write_bam(src, REFS, recs)
     payload = gzip.decompress(open(src, "rb").read())
@@ -83,6 +85,63 @@ def _fixture(tmp_path, n=600, seed=21):
             fp.write(compress_block(payload[i:i + BLOCK], level=1))
         fp.write(BGZF_EOF)
     return p
+
+
+def _split_reads(rng, n=40):
+    """Split reads below 1 Mb: each a primary and one or two supplementary
+    records whose SA tags list the read's other alignments, on either
+    strand, with clips at either end or both, deletions and insertions;
+    and five odd ones: a primary without an SA tag, an entry without a
+    clip (the read keeps no alignment), no primary (the read is dropped),
+    a tag without its last ';' and a one-base alignment (per-base NM
+    infinite)."""
+    out = []
+
+    def read(name, parts, primary=True, sa_of=None):
+        """parts: (query start, query end, read length, strand, chrom,
+        pos, middle op) of each alignment, the first the primary."""
+        cigars = []
+        for qa, qb, rl, strand, _, _, mid in parts:
+            m = qb - qa
+            core = f"{m}M"
+            if mid == "D":
+                core = f"{m // 2}M{rng.randrange(1, 900)}D{m - m // 2}M"
+            elif mid == "I":
+                core = f"{m // 2}M{m // 4}I{m - m // 2 - m // 4}M"
+            left, right = (qa, rl - qb) if strand == "+" else (rl - qb, qa)
+            cigars.append((f"{left}S" if left else "") + core
+                          + (f"{right}S" if right else ""))
+        entries = [f"{c},{p + 1},{s},{cig},{rng.randrange(61)},"
+                   f"{rng.randrange(30)};"
+                   for (_, _, _, s, c, p, _), cig in zip(parts, cigars)]
+        for k, ((_, _, _, s, c, p, _), cig) in enumerate(zip(parts, cigars)):
+            flag = (0 if k == 0 and primary else 0x800) | (16 * (s == "-"))
+            sa = "".join(entries[:k] + entries[k + 1:])
+            if sa_of is not None:
+                sa = sa_of(k, sa)
+            out.append(BamRecord(name, flag, c, p, rng.randrange(61), cig,
+                                 tags={"NM": rng.randrange(50), "SA": sa}
+                                 if sa else {"NM": rng.randrange(50)}))
+
+    def alignments(rl, cuts):
+        bounds = [0] + sorted(cuts) + [rl]
+        return [(a, b, rl, rng.choice("+-"), rng.choice(["chr1", "chr2"]),
+                 rng.randrange(0, 950_000), rng.choice(["", "", "D", "I"]))
+                for a, b in zip(bounds, bounds[1:])]
+
+    for i in range(n):
+        rl = rng.randrange(400, 4000)
+        read(f"s{i:03d}", alignments(
+            rl, rng.sample(range(60, rl - 60), rng.choice([1, 2]))))
+    read("nosa_primary", alignments(900, [450]),
+         sa_of=lambda k, sa: sa if k else "")
+    read("noclip", alignments(900, [450]),
+         sa_of=lambda k, sa: sa + ("chr1,100001,+,300M,60,3;" if k else ""))
+    read("noprimary", alignments(900, [300]), primary=False)
+    read("nosemi", alignments(900, [300]), sa_of=lambda k, sa: sa[:-1])
+    read("onebase", [(0, 899, 900, "+", "chr1", 600_000, ""),
+                     (899, 900, 900, "+", "chr2", 700_000, "")])
+    return out
 
 
 def _native(path, nthreads):
@@ -539,3 +598,47 @@ def test_column_runs_share_members(dense_bams, nthreads, query):
             hi - lo
         walked += d["decode_walked_records"]
     assert needed < walked
+
+
+# ---- the scan's table and the chimeras, against the reference package ---
+
+@pytest.mark.parametrize("nthreads", NTHREADS)
+def test_scan_table_and_chimeras_match_the_reference(bams, monkeypatch,
+                                                     nthreads):
+    """The port's native scan on ``nthreads`` threads and the chimeras its
+    SA parse assembles equal the reference package's pure-Python reader
+    and chimera collect: the references, every column both readers keep,
+    and each split read's alignments, read length and the NM statistics."""
+    from coral_tpu.ops.chimera import collect_chimeras as ref_collect
+    from coral_tpu_torch.native import bamcore
+    from coral_tpu_torch.ops.chimera import collect_chimeras
+
+    ref, _ = bams
+    opened = bamcore.NativeBam
+    monkeypatch.setattr(bamcore, "NativeBam", lambda path, cache_path=None:
+                        opened(path, nthreads=nthreads, cache_path=cache_path))
+    nat = BamFile(ref.path, backend="native")
+    assert nat.references == ref.references
+    assert nat.n_records == ref.n_records
+    for col in ("flag", "ref_id", "pos", "end", "mapq", "qlen", "nm",
+                "name_off", "sa_off", "sa_len"):
+        np.testing.assert_array_equal(getattr(nat, col), getattr(ref, col),
+                                      err_msg=col)
+    assert nat.name_blob == ref.name_blob
+    assert nat.sa_blob == ref.sa_blob
+
+    read_length, chim, nm_stats = collect_chimeras(nat)
+    ref_length, ref_chim, ref_nm_stats = ref_collect(ref)
+    assert nm_stats == ref_nm_stats
+    assert list(chim) == list(ref_chim)
+    assert read_length == {rn: ref_length[rn] for rn in ref_chim}
+    for rn in ref_chim:
+        got, want = chim[rn], ref_chim[rn]
+        assert (got.q, got.r, got.mapq, got.nm) == \
+            (want.q, want.r, want.mapq, want.nm), rn
+    # the fixture reaches every branch of the SA parse
+    assert len(ref_chim) == 44 and "noprimary" not in ref_chim
+    assert len(ref_chim["noclip"]) == 0
+    assert float("inf") in ref_chim["onebase"].nm
+    assert {r[3] for c in ref_chim.values() for r in c.r} == {"+", "-"}
+    assert max(len(c) for c in ref_chim.values()) == 3
